@@ -496,7 +496,7 @@ void Bzip2Encode(const uint8_t* in, size_t n, int level,
   Rle1Units(in, n, &units);
 
   // Collect RLE1 blocks, then encode them in parallel (blocks are
-  // independent by format — the same property the TPU pipeline shards on)
+  // independent by format — the same property the device pipeline shards on)
   // and splice the resulting bit streams in order.
   struct BlockJob {
     std::vector<uint8_t> data;
@@ -843,7 +843,7 @@ int DecodeBlockToLast(BitReaderMSB* br, std::vector<uint8_t>* last_out,
 }
 
 // Second half: inverse BWT + RLE1^-1 (shared with the device path's host
-// tail, which receives the iBWT output from the TPU instead).
+// tail, which receives the iBWT output from the device instead).
 int IbwtAndRle1(const std::vector<uint8_t>& last, uint32_t orig,
                 std::vector<uint8_t>* plain) {
   // Inverse BWT (counting sort -> next-pointer walk).

@@ -76,7 +76,7 @@ struct BlockPlan {
 };
 
 // Everything downstream of the histograms; shared by the oracle encoder
-// and the TPU pipeline's host planning (tpz_deflate_plan) so the two can
+// and the device pipeline's host planning (tpz_deflate_plan) so the two can
 // never diverge. lit_freq must NOT count EOB; it is forced to 1 here.
 void PlanFromFreqs(BlockPlan* bp) {
   bp->lit_freq[256] = 1;  // EOB
@@ -379,7 +379,7 @@ void DeflateEncode(const uint8_t* in, size_t n, const DeflateParams& params,
 }
 
 // ---------------------------------------------------------------------------
-// Planning API for the TPU pipeline (host side of the device encode)
+// Planning API for the device pipeline (host side of the device encode)
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -885,7 +885,7 @@ std::vector<uint8_t>& InflateStream::pending() { return impl_->out; }
 // Header scan for device-parallel decode (SURVEY.md §7.4): given the
 // encoder's per-block end-bit index (gzip FEXTRA 'TZ' side-car), parse
 // ONLY the block headers — O(tables), no symbol scan — and export flat
-// single-level decode tables + body offsets for the TPU symbol walk
+// single-level decode tables + body offsets for the device symbol walk
 // (tpz/kernels/inflate_pipeline.py).
 // ---------------------------------------------------------------------------
 

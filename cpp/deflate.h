@@ -3,7 +3,7 @@
 // Parity: reference crate src/deflate/ (Deflater/Inflater, stored/fixed/
 // dynamic blocks, [MED] SURVEY.md §2.1; behavior pinned by RFC 1951, not by
 // the crate's internals). Encode-side block/parse decisions follow "parse
-// spec v1" (lzss.h) shared with the TPU kernels; one input block (64 KiB)
+// spec v1" (lzss.h) shared with the device kernels; one input block (64 KiB)
 // maps to one DEFLATE block, chosen stored/fixed/dynamic by exact bit cost.
 #pragma once
 
@@ -17,13 +17,13 @@ namespace tpz {
 
 struct DeflateParams {
   LzssParams lzss;
-  // Profile: "tpu" = greedy parse (device-parity); "max" = lazy host parse.
+  // Profile: "device" = greedy parse (device-parity); "max" = lazy host parse.
   static DeflateParams Profile(int level) {
     DeflateParams p;
     if (level <= 0) {  // fastest: tiny chain
       p.lzss.max_chain = 4;
       p.lzss.lazy = false;
-    } else if (level <= 6) {  // default / TPU-parity
+    } else if (level <= 6) {  // default / device-parity
       p.lzss.max_chain = 32;  // K=32 is speed-neutral in the sorted-space
       p.lzss.lazy = false;    // screen (measured) and ~1% better ratio
     } else {  // max (host only)
@@ -120,7 +120,7 @@ void DeflateEncodeBlock(const uint8_t* block_data, size_t block_len,
                         const Token* tokens, size_t ntokens, bool bfinal,
                         BitWriterLSB* bw);
 
-// Host-side planning for the TPU encode pipeline: from per-block symbol
+// Host-side planning for the device encode pipeline: from per-block symbol
 // histograms (device-computed), choose block types, build code tables
 // (bit-reversed for LSB packing), emit every header bit at its absolute
 // offset into `header_stream` (caller-zeroed; device body bits are ORed in

@@ -19,7 +19,7 @@ def fmt_array(name, arr, ctype):
     return f"static const {ctype} {name}[{len(arr)}] = {{{vals}}};\n"
 
 
-def main(out_path):
+def render() -> str:
     parts = [
         "// AUTO-GENERATED by cpp/gen_constants.py from tpz/constants.py.\n"
         "// Do not edit by hand.\n"
@@ -64,8 +64,12 @@ def main(out_path):
         f"static const int kLzhufMaxCodeLen = {C.LZHUF_MAX_CODE_LEN};\n",
         "\n}  // namespace tpz\n",
     ]
+    return "".join(parts)
+
+
+def main(out_path):
     with open(out_path, "w") as f:
-        f.write("".join(parts))
+        f.write(render())
     print(f"wrote {out_path}")
 
 

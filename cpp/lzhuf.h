@@ -93,7 +93,7 @@ int LzhufIndex(const uint8_t* in, size_t n, const LzhufMethod& m,
 }  // namespace tpz
 
 namespace tpz {
-// Host planning for the TPU lzhuf pipeline: from per-block C/P histograms
+// Host planning for the device lzhuf pipeline: from per-block C/P histograms
 // and token counts, build tables (MSB code values, no bit reversal) and
 // emit all header bits at absolute offsets into header_stream
 // (caller-zeroed). p_len/p_code rows are strided by 20 (np <= 17).

@@ -4,7 +4,7 @@
 // emitting LzssCode::{Symbol, Reference{len,pos}}, [HIGH] SURVEY.md §2.1).
 // The crate's search structure is unknown (SURVEY.md §0.1 Q1); this module
 // instead defines OUR deterministic spec, implemented identically here and
-// in the TPU kernels (tpz/kernels/matchfinder.py + parse.py) so oracle and
+// in the device kernels (tpz/kernels/matchfinder.py + parse.py) so oracle and
 // device produce byte-identical token streams:
 //
 //   - hash: h(i) = low 3 bytes * 0x9E3779B1 >> (32 - hash_bits)
@@ -60,10 +60,9 @@ struct LzssParams {
   // Parse restart interval (suffix_mode only; 0 = off): match lengths are
   // additionally capped so no token crosses a `restart`-aligned boundary
   // within the parse block. Restarting the greedy chain every `restart`
-  // bytes makes the block's parse a set of independent sub-walks — the
-  // device kernel (tpz/kernels/parse.py parse_extend_pallas_v3w) walks
-  // them as interleaved chains to hide VMEM access latency. Must be a
-  // power of two dividing block_size.
+  // bytes makes the block's parse a set of independent sub-walks, which
+  // a parallel walk can advance side by side. Must be a power of two
+  // dividing block_size.
   int restart = 0;
 };
 

@@ -41,7 +41,7 @@ def test_walk_declines_gracefully():
     assert out is None or out == data
     from tpz.codecs import bzip2 as codec
 
-    assert codec.decompress(enc, backend="tpu") == data
+    assert codec.decompress(enc, backend="device") == data
 
 
 def test_walk_rejects_corrupt_trailer():
@@ -134,7 +134,7 @@ def test_decompress_walk_many_batched():
     outs = bzip2_pipeline.decompress_walk_many(blobs)
     for d, o in zip(datas, outs):
         assert o is None or o == d
-    assert api.decompress_many(blobs, "bzip2", backend="tpu") == datas
+    assert api.decompress_many(blobs, "bzip2", backend="device") == datas
     # mixed levels -> two jit groups
     blobs2 = [bz2.compress(datas[0], 1), bz2.compress(datas[1], 9)]
     outs2 = bzip2_pipeline.decompress_walk_many(blobs2)

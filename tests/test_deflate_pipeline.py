@@ -1,6 +1,6 @@
 """Device DEFLATE pipeline vs C++ oracle — byte-identity differential test
 (SURVEY.md §4 item 1). Runs on the CPU backend via conftest; the same jit
-code runs on TPU."""
+code runs on the GPU."""
 
 import zlib
 

@@ -1,7 +1,7 @@
-"""Pallas segment-walk inverse BWT (tpz/kernels/ibwt_walk.py).
+"""Device inverse BWT by list ranking (tpz/kernels/ibwt_walk.py).
 
 Reference crate parity anchor: BZip2 decode (SURVEY.md §2.1 BZip2 row,
-§7.5); the walk replaces the round-2 pointer-doubling iBWT on device.
+§7.5).
 """
 
 import numpy as np
@@ -55,10 +55,9 @@ def test_walk_matches_plaintext():
 
 
 def test_periodic_block_detected():
-    """A periodic block's LF map splits into disjoint cycles; the walk
+    """A periodic block's LF map splits into disjoint cycles; the iBWT
     must DETECT it (return None -> host decoder) rather than emit
-    garbage. The round-2 pointer-doubling path silently mis-ranked
-    these."""
+    garbage."""
     cases = [b"banana_bandana_banana" * 30]
     last, lens, origs = _pack(cases, 1024)
     assert ibwt_blocks_fast(last, lens, origs) is None

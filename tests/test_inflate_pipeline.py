@@ -1,7 +1,7 @@
 """Device-parallel DEFLATE decode (VERDICT r1 #2): the encoder's 'TZ'
 block index + header-only host scan + device symbol walk / pointer-doubling
 match resolution must reproduce the plaintext exactly. Runs on CPU via the
-Pallas interpreter; the same kernel runs compiled on TPU."""
+XLA twin of the walk; the Pallas-Triton kernel runs compiled on the GPU."""
 
 import gzip as stdgz
 
@@ -32,9 +32,9 @@ def test_indexed_decode_roundtrip(name):
     from tpz.kernels import inflate_pipeline as ip
 
     data = CASES[name]
-    stream, bits, lens = deflate.compress_indexed(data)
+    stream, bits, lens = deflate.compress_indexed(data, backend="device")
     assert bits is not None
-    out = ip.decompress_indexed(stream, bits, lens, interpret=True)
+    out = ip.decompress_indexed(stream, bits, lens)
     assert out == data
 
 
@@ -43,15 +43,16 @@ def test_indexed_decode_levels():
 
     data = corpus.mixed(150_000)
     for level in (1, 6, 9):
-        stream, bits, lens = deflate.compress_indexed(data, level=level)
-        out = ip.decompress_indexed(stream, bits, lens, interpret=True)
+        stream, bits, lens = deflate.compress_indexed(data, level=level,
+                                                      backend="device")
+        out = ip.decompress_indexed(stream, bits, lens)
         assert out == data, f"level {level}"
 
 
 def test_gzip_index_interop():
     """The FEXTRA side-car must not disturb any other decoder."""
     data = corpus.mixed(200_000)
-    blob = gzip_codec.compress(data)
+    blob = gzip_codec.compress(data, backend="device")
     assert stdgz.decompress(blob) == data
     assert gzip_codec.decompress(blob) == data
     pos, extra = gzip_codec.parse_header_extra(blob, 0)
@@ -62,26 +63,26 @@ def test_gzip_index_interop():
 
 
 def test_gzip_device_decode_forced():
-    """backend='tpu' forces the device decode path end-to-end (interpreted
-    off-TPU); CRC verification still guards it."""
+    """backend='device' forces the device decode path end-to-end (the
+    XLA twin on the CPU); CRC verification still guards it."""
     data = corpus.mixed(150_000)
-    blob = gzip_codec.compress(data)
-    assert gzip_codec.decompress(blob, backend="tpu") == data
+    blob = gzip_codec.compress(data, backend="device")
+    assert gzip_codec.decompress(blob, backend="device") == data
 
 
 def test_gzip_corrupt_body_detected_on_device_path():
     data = corpus.text(150_000)
-    blob = bytearray(gzip_codec.compress(data))
+    blob = bytearray(gzip_codec.compress(data, backend="device"))
     pos, extra = gzip_codec.parse_header_extra(bytes(blob), 0)
     blob[pos + 5000] ^= 0xFF  # flip bits mid-body
     with pytest.raises(Exception):
-        gzip_codec.decompress(bytes(blob), backend="tpu")
+        gzip_codec.decompress(bytes(blob), backend="device")
 
 
 def test_scan_headers_matches_inflate():
     """Header scan agrees with the full inflate on block structure."""
     data = corpus.mixed(200_000)
-    stream, bits, lens = deflate.compress_indexed(data)
+    stream, bits, lens = deflate.compress_indexed(data, backend="device")
     scan = oracle.inflate_scan_headers(stream, np.asarray(bits))
     assert scan["btype"].shape[0] == len(bits)
     assert (scan["btype"] >= 0).all() and (scan["btype"] <= 2).all()
@@ -101,9 +102,9 @@ def test_decompress_many_indexed_batch():
              corpus.mixed(130_000), b"tiny", corpus.random_bytes(66_000)]
     items = []
     for d in datas:
-        stream, bits, lens = deflate.compress_indexed(d)
+        stream, bits, lens = deflate.compress_indexed(d, backend="device")
         items.append((stream, bits, lens))
-    outs = ip.decompress_many_indexed(items, interpret=True)
+    outs = ip.decompress_many_indexed(items)
     for d, o in zip(datas, outs):
         assert o == d
 
@@ -116,9 +117,9 @@ def test_resolution_large_batch():
     datas = [corpus.mixed(600_000, seed=3), corpus.repetitive(500_000)]
     items = []
     for d in datas:
-        stream, bits, lens = deflate.compress_indexed(d)
+        stream, bits, lens = deflate.compress_indexed(d, backend="device")
         items.append((stream, bits, lens))
-    outs = ip.decompress_many_indexed(items, interpret=True)
+    outs = ip.decompress_many_indexed(items)
     for d, o in zip(datas, outs):
         assert o == d
 
@@ -135,12 +136,12 @@ def test_segment_index_foreign_zlib_gzip():
 
     data = corpus.mixed(400_000, seed=13)
     z = syszlib.compress(data, 9)
-    out = zlib_codec.decompress(z, backend="tpu")
+    out = zlib_codec.decompress(z, backend="device")
     assert out == data
     g = sysgzip.compress(data, 6)
-    out = gzip_codec.decompress(g, backend="tpu")
+    out = gzip_codec.decompress(g, backend="device")
     assert out == data
-    # raw deflate with trailing garbage still rejected on the tpu path
+    # raw deflate with trailing garbage still rejected on the device path
     raw = z[2:-4]
     from tpz.codecs import deflate as dcodec
     import pytest as _pytest
@@ -148,7 +149,7 @@ def test_segment_index_foreign_zlib_gzip():
     from tpz.errors import DataError as _DE
 
     with _pytest.raises(_DE):
-        dcodec.decompress(raw + b"junk", backend="tpu")
+        dcodec.decompress(raw + b"junk", backend="device")
     # batch API
     idx = ip.index_stream(raw)
     assert idx is not None and idx["consumed"] == len(raw)
@@ -161,7 +162,7 @@ def test_segment_index_own_oracle_stream():
 
     data = corpus.mixed(300_000, seed=21)
     body = dcodec.compress(data, 6, backend="oracle")
-    out = dcodec.decompress(body, backend="tpu")
+    out = dcodec.decompress(body, backend="device")
     assert out == data
 
 
@@ -171,7 +172,7 @@ def test_api_decompress_backend_plumbing():
     data = corpus.text(50_000)
     for fmt in ("gzip", "zlib", "deflate"):
         c = api.compress(data, fmt, backend="oracle")
-        assert api.decompress(c, fmt, backend="tpu") == data
+        assert api.decompress(c, fmt, backend="device") == data
         assert api.decompress(c, fmt) == data
 
 
@@ -198,7 +199,7 @@ def test_segment_indexer_fuzz_vs_stdlib():
         idx = ip.index_stream(raw)
         if idx is None:
             continue
-        out = ip.decompress_segmented(raw, idx, interpret=True)
+        out = ip.decompress_segmented(raw, idx)
         assert out == data, (trial, n, lvl)
 
 
@@ -211,15 +212,15 @@ def test_gzip_multimember_batched_decode():
 
     parts = [corpus.text(120_000), corpus.mixed(90_000, seed=9),
              corpus.repetitive(50_000)]
-    blob = b"".join(gz.compress(p) for p in parts)
-    out = gz.decompress(blob, backend="tpu")
+    blob = b"".join(gz.compress(p, backend="device") for p in parts)
+    out = gz.decompress(blob, backend="device")
     assert out == b"".join(parts)
     bad = bytearray(blob)
     bad[-6] ^= 1  # last member's CRC field
     import pytest as _pt
 
     with _pt.raises(DE):
-        gz.decompress(bytes(bad), backend="tpu")
+        gz.decompress(bytes(bad), backend="device")
 
 
 def test_segment_route_corruption_never_silent():
@@ -239,7 +240,7 @@ def test_segment_route_corruption_never_silent():
         bad[int(rng.integers(2, len(blob) - 4))] ^= 1 << int(
             rng.integers(0, 8))
         try:
-            out = zc.decompress(bytes(bad), backend="tpu")
+            out = zc.decompress(bytes(bad), backend="device")
             assert out == data  # flip was in a dont-care bit
         except CompressionError:
             pass
@@ -251,13 +252,13 @@ def test_api_decompress_many_gzip_batched():
     datas = [corpus.text(80_000), corpus.mixed(60_000, seed=1), b"",
              corpus.repetitive(30_000)]
     blobs = api.compress_many(datas, "gzip", backend="oracle")
-    outs = api.decompress_many(blobs, "gzip", backend="tpu")
+    outs = api.decompress_many(blobs, "gzip", backend="device")
     assert outs == datas
     outs = api.decompress_many(blobs, "gzip")
     assert outs == datas
     # other formats route per buffer
     zb = api.compress_many(datas, "zlib", backend="oracle")
-    assert api.decompress_many(zb, "zlib", backend="tpu") == datas
+    assert api.decompress_many(zb, "zlib", backend="device") == datas
 
 
 def test_segmented_batch_grouping(monkeypatch):
@@ -277,7 +278,7 @@ def test_segmented_batch_grouping(monkeypatch):
         assert idx is not None
         items.append((raw, idx))
     monkeypatch.setattr(ip, "MAX_DECODE_SPAN", 150_000)
-    outs = ip.decompress_many_segmented(items, interpret=True)
+    outs = ip.decompress_many_segmented(items)
     assert outs == datas
     # a single stream above the packed cap routes WIDE and still
     # decodes; above the wide cap it raises cleanly
@@ -285,11 +286,11 @@ def test_segmented_batch_grouping(monkeypatch):
 
     big = (items[0][0], items[0][1])
     monkeypatch.setattr(ip, "MAX_DECODE_SPAN", 50_000)
-    assert ip.decompress_many_segmented([big], interpret=True)[0] \
+    assert ip.decompress_many_segmented([big])[0] \
         == datas[0]
     monkeypatch.setattr(ip, "MAX_DECODE_SPAN_WIDE", 50_000)
     with _pt.raises(Exception):
-        ip.decompress_many_segmented([big], interpret=True)
+        ip.decompress_many_segmented([big])
 
 
 def test_wide_resolution_routing(monkeypatch):
@@ -307,38 +308,8 @@ def test_wide_resolution_routing(monkeypatch):
         idx = ip.index_stream(raw)
         assert idx is not None
         items.append((raw, idx))
-    ref = ip.decompress_many_segmented(items, interpret=True)
+    ref = ip.decompress_many_segmented(items)
     assert ref == datas
     monkeypatch.setattr(ip, "MAX_DECODE_SPAN", 100_000)
-    outs = ip.decompress_many_segmented(items, interpret=True)
+    outs = ip.decompress_many_segmented(items)
     assert outs == datas  # 200k stream went wide; 80k stayed packed
-
-
-def test_inflate_walk_vz_end_to_end():
-    """Round-5 lane-parallel XLA symbol walk (TPZ_INFLATE_WALK=vz) is
-    marker-identical to the Pallas walk: the full device decode route
-    (indexed member + foreign zlib via segments) round-trips with CRC
-    validation. Subprocess: the variant is chosen at trace time, so it
-    must not share this process's jit caches."""
-    import subprocess
-    import sys
-
-    code = (
-        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
-        "import zlib\n"
-        "from tpz.codecs import gzip_codec as gz, zlib_codec as zc\n"
-        "from tpz.utils import corpus\n"
-        "data = bytes(corpus.mixed(400_000, seed=33))\n"
-        "blob = gz.compress(data)\n"
-        "assert gz.decompress(blob, backend='tpu') == data\n"
-        "d2 = bytes(corpus.mixed(300_000, seed=34))\n"
-        "assert zc.decompress(zlib.compress(d2, 6), backend='tpu') == d2\n"
-        "print('VZ-OK')\n"
-    )
-    import os
-
-    env = dict(os.environ, TPZ_INFLATE_WALK="vz", JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", code], env=env,
-                       capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "VZ-OK" in r.stdout

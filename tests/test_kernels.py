@@ -1,13 +1,11 @@
-"""Kernel micro-tests (SURVEY.md §4 item 4): numpy/C++ twins agree, Pallas
-and XLA parse paths agree, device token stream equals oracle tokens."""
+"""Kernel micro-tests (SURVEY.md §4 item 4): numpy/C++ twins agree, the
+pointer-doubling parse equals a sequential walk, and the device token
+stream equals the oracle's tokens for parse specs v1 and v3."""
 
-import os
-
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
 
 from tpz import oracle
 from tpz.kernels import huffman as khuff
@@ -42,25 +40,14 @@ def test_canonical_twin_matches_cpp():
         assert np.array_equal(ours, ref)
 
 
-def test_parse_pallas_matches_doubling():
-    from tpz.kernels.parse import _parse_doubling, _parse_pallas
-
-    rng = np.random.default_rng(2)
-    step = rng.integers(1, 9, size=(3, 256)).astype(np.int32)
-    # sprinkle long jumps
-    step[rng.random(step.shape) < 0.1] = 100
-    s = jnp.asarray(step)
-    a = np.asarray(_parse_doubling(s))
-    b = np.asarray(_parse_pallas(s, interpret=True))
-    assert np.array_equal(a > 0, b > 0)
-
-
 def test_device_tokens_match_oracle_tokens():
-    """Stage-1 token stream == oracle LzssTokenize for the same spec."""
+    """Parse spec v1 (hash screen, the LZHUF matcher) + greedy parse ==
+    oracle LzssTokenize for the same spec."""
     if not oracle.available():
         pytest.skip("oracle not built")
-    from tpz.kernels.deflate_pipeline import BLOCK, _make_words, _stage1
-    from tpz.kernels.matchfinder import FWD_PAD, WINDOW
+    from tpz.kernels.deflate_pipeline import BLOCK, _make_words
+    from tpz.kernels.matchfinder import FWD_PAD, WINDOW, find_matches
+    from tpz.kernels.parse import greedy_parse
 
     data = corpus.mixed(100_000, seed=42)
     n = len(data)
@@ -71,8 +58,9 @@ def test_device_tokens_match_oracle_tokens():
     span_off = jnp.asarray((np.arange(nb) * BLOCK).astype(np.int32))
     block_len = jnp.asarray(
         np.minimum(n - np.arange(nb) * BLOCK, BLOCK).astype(np.int32))
-    mlen, mdist, is_token, _, _, ntokens = _stage1(
-        words, span_off, jnp.int32(n), block_len, 32, False)
+    data_w = (words & jnp.uint32(0xFF)).astype(jnp.int32)
+    mlen, mdist = find_matches(data_w, span_off, jnp.int32(n), k=32)
+    is_token, _, _ = greedy_parse(mlen, mdist, block_len)
     mlen, mdist, is_token = map(np.asarray, (mlen, mdist, is_token))
 
     ref = oracle.lzss_tokenize(data)
@@ -89,318 +77,160 @@ def test_device_tokens_match_oracle_tokens():
     assert dev_tokens == ref_tokens
 
 
-def test_parse_extend_pallas_matches_xla_path():
-    """Fused Pallas parse+extend (interpret mode) == find_matches+parse."""
-    import functools
+def _walk_reach(step, block_len):
+    """Sequential greedy walk: positions p -> p + step[p] from 0."""
+    reach = np.zeros(step.shape, bool)
+    for b in range(step.shape[0]):
+        p = 0
+        while p < block_len[b]:
+            reach[b, p] = True
+            p += int(step[b, p])
+    return reach
 
+
+@pytest.mark.parametrize("seed,n", [(2, 256), (3, 1000), (4, 4096)])
+def test_parse_doubling_matches_python_walk(seed, n):
+    """_parse_doubling (log2(N) gather/scatter rounds) visits exactly the
+    positions of the sequential chain, including jumps that overshoot the
+    block end; greedy_parse masks positions past block_len."""
+    from tpz.kernels.parse import _parse_doubling, greedy_parse
+
+    rng = np.random.default_rng(seed)
+    step = rng.integers(1, 9, size=(3, n)).astype(np.int32)
+    step[rng.random(step.shape) < 0.1] = 100  # long jumps
+    reach = np.asarray(_parse_doubling(jnp.asarray(step))) > 0
+    full = np.full(3, n)
+    assert np.array_equal(reach, _walk_reach(step, full))
+    mlen = np.where(step >= 3, step, 0).astype(np.int32)
+    blen = np.array([n, n - 17, n // 2], np.int32)
+    is_tok, tok_idx, ntok = map(np.asarray, greedy_parse(
+        jnp.asarray(mlen), jnp.zeros_like(jnp.asarray(mlen)),
+        jnp.asarray(blen)))
+    want = _walk_reach(np.where(mlen >= 3, mlen, 1), full)
+    want &= np.arange(n)[None, :] < blen[:, None]
+    assert np.array_equal(is_tok, want)
+    assert np.array_equal(ntok, want.sum(axis=1))
+    assert np.array_equal(tok_idx[want],
+                          np.concatenate([np.arange(k) for k in ntok]))
+
+
+def _v3_tokens(raw, n_blocks, window, block, restart, lazy):
+    """Device spec-v3 tokens (find_matches_v3 + greedy parse) over a
+    small-geometry block batch, as oracle-style (pos, len, lit, dist)."""
     from tpz.kernels import matchfinder as mf
-    from tpz.kernels.parse import greedy_parse, parse_extend_pallas
+    from tpz.kernels.parse import greedy_parse
 
-    window, block, n_blocks = 512, 1024, 3
-    n = n_blocks * block
-    data = np.frombuffer(corpus.mixed(n, seed=77), np.uint8)
-    span = np.zeros(window + n + 512, np.uint8)
+    n = len(raw)
+    data = np.frombuffer(raw, np.uint8)
+    span = np.zeros(window + n_blocks * block + 512, np.uint8)
     span[window:window + n] = data
     m = window + block + 512
     idx = np.arange(n_blocks)[:, None] * block + np.arange(m)[None, :]
-    blocks = jnp.asarray(span[idx].astype(np.int32))
+    words = mf.words_at(jnp.asarray(span[idx].astype(np.int32)))
     span_off = jnp.asarray((np.arange(n_blocks) * block).astype(np.int32))
-    block_len = jnp.asarray(np.full(n_blocks, block, np.int32))
-
-    mlen_ref, mdist_ref = mf.find_matches(
-        blocks, span_off, jnp.int32(n), k=8, window=window, block=block)
-    is_tok_ref, _, _ = greedy_parse(mlen_ref, mdist_ref, block_len)
-
-    bj, bs, words, _ = mf.screen_candidates(
-        blocks, span_off, jnp.int32(n), 8, window, block, 258)
-    words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-    reach, mlen = parse_extend_pallas(
-        np.asarray(bs)[:, window:window + block],
-        np.asarray(bj)[:, window:window + block],
-        words_i32, block_len[:, None], window, interpret=True)
-    reach, mlen = np.asarray(reach), np.asarray(mlen)
-    is_tok = (reach > 0)
-    assert np.array_equal(is_tok, np.asarray(is_tok_ref)), "token sets differ"
-    ml_ref = np.asarray(mlen_ref)
+    block_len = np.minimum(n - np.arange(n_blocks) * block,
+                           block).astype(np.int32)
+    mlen, mdist = mf.find_matches_v3(
+        words, span_off, jnp.int32(n), 8, window=window, block=block,
+        screen_bytes=16, lazy=lazy, restart=restart)
+    is_tok, _, _ = greedy_parse(mlen, mdist, jnp.asarray(block_len))
+    mlen, mdist, is_tok = map(np.asarray, (mlen, mdist, is_tok))
+    toks = []
     for b in range(n_blocks):
         for p in np.nonzero(is_tok[b])[0]:
-            assert mlen[b, p] == ml_ref[b, p], (b, p, mlen[b, p], ml_ref[b, p])
+            pos = b * block + int(p)
+            ln = int(mlen[b, p])
+            toks.append((pos, ln, 0, int(mdist[b, p])) if ln >= 3
+                        else (pos, 0, int(data[pos]), 0))
+    return toks
 
 
-def test_parse_extend_pallas_lazy_matches_oracle_tokens():
-    """Fused kernel with lazy=True (interpret) == oracle lazy profile."""
-    from tpz.kernels import matchfinder as mf
-    from tpz.kernels.parse import parse_extend_pallas
-
-    if not oracle.available():
-        pytest.skip("oracle not built")
+@pytest.mark.parametrize("restart", [0, 256])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_parse_v3_matches_oracle_tokens(lazy, restart):
+    """The device spec-v3 parse (suffix screen + rank extension + local
+    lazy demotion + pointer-doubling walk) == oracle suffix_mode, with a
+    ragged tail block and with and without the restart rule."""
     window, block, n_blocks = 512, 1024, 3
-    n = n_blocks * block
-    raw = corpus.mixed(n, seed=123)
-    data = np.frombuffer(raw, np.uint8)
-    span = np.zeros(window + n + 512, np.uint8)
-    span[window:window + n] = data
-    m = window + block + 512
-    idx = np.arange(n_blocks)[:, None] * block + np.arange(m)[None, :]
-    blocks = jnp.asarray(span[idx].astype(np.int32))
-    span_off = jnp.asarray((np.arange(n_blocks) * block).astype(np.int32))
-    block_len = jnp.asarray(np.full(n_blocks, block, np.int32))
-
-    bj, bs, words, _ = mf.screen_candidates(
-        blocks, span_off, jnp.int32(n), 8, window, block, 258)
-    words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-    reach, mlen = parse_extend_pallas(
-        np.asarray(bs)[:, window:window + block],
-        np.asarray(bj)[:, window:window + block],
-        words_i32, block_len[:, None], window, lazy=True, interpret=True)
-    reach, mlen = np.asarray(reach), np.asarray(mlen)
-    bj_np = np.asarray(bj)
-
-    ref = oracle.lzss_tokenize(
-        raw, oracle.params_array(window=window, max_chain=8,
-                                 block_size=block, lazy=True))
-    dev_tokens = []
-    for b in range(n_blocks):
-        for p in np.nonzero(reach[b] > 0)[0]:
-            pos = b * block + int(p)
-            ln = int(mlen[b, p])
-            if ln >= 3:
-                dist = int(p) + window - int(bj_np[b, window + p])
-                dev_tokens.append((pos, ln, 0, dist))
-            else:
-                dev_tokens.append((pos, 0, int(data[pos]), 0))
-    assert dev_tokens == [tuple(t) for t in ref.tolist()]
-
-
-@pytest.mark.parametrize("lazy", [False, True])
-def test_parse_extend_pallas_v3w_matches_oracle_tokens(lazy):
-    """Interleaved spec-v3 walk (interpret) == oracle suffix_mode with the
-    same restart interval: token-identical including sub-walk boundaries,
-    candidate-2 extension, and the lazy probe across sub-boundaries."""
-    from tpz.kernels import matchfinder as mf
-    from tpz.kernels.parse import parse_extend_pallas_v3w
-
-    if not oracle.available():
-        pytest.skip("oracle not built")
-    window, block, n_blocks, restart = 512, 1024, 3, 256
-    n = n_blocks * block - 100  # ragged tail block
-    raw = corpus.mixed(n, seed=321)
-    data = np.frombuffer(raw, np.uint8)
-    span = np.zeros(window + n_blocks * block + 512, np.uint8)
-    span[window:window + n] = data
-    m = window + block + 512
-    idx = np.arange(n_blocks)[:, None] * block + np.arange(m)[None, :]
-    blocks = jnp.asarray(span[idx].astype(np.int32))
-    words = mf.words_at(blocks)
-    span_off = jnp.asarray((np.arange(n_blocks) * block).astype(np.int32))
-    block_len = jnp.asarray(np.minimum(
-        n - np.arange(n_blocks) * block, block).astype(np.int32))
-
-    pk1, pk2, _ = mf.suffix_screen_w(
-        words, span_off, jnp.int32(n), 8, window, block, 258, 16, restart)
-    words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-    sl = slice(window, window + block)
-    reach, mlen, mdist = parse_extend_pallas_v3w(
-        pk1[:, sl], pk2[:, sl], words_i32, block_len[:, None], window,
-        258, 16, lazy=lazy, restart=restart, nblk=2, interpret=True)
-    reach, mlen, mdist = map(np.asarray, (reach, mlen, mdist))
-    bl = np.asarray(block_len)
-
+    raw = corpus.mixed(n_blocks * block - 100, seed=321 + restart)
+    toks = _v3_tokens(raw, n_blocks, window, block, restart, lazy)
     ref = oracle.lzss_tokenize(
         raw, oracle.params_array(window=window, max_chain=8,
                                  block_size=block, lazy=lazy, n_extend=2,
                                  screen_bytes=16, suffix_mode=True,
                                  restart=restart))
-    dev_tokens = []
-    for b in range(n_blocks):
-        for p in np.nonzero((reach[b] > 0) & (np.arange(block) < bl[b]))[0]:
-            pos = b * block + int(p)
-            ln = int(mlen[b, p])
-            if ln >= 3:
-                dev_tokens.append((pos, ln, 0, int(mdist[b, p])))
-            else:
-                dev_tokens.append((pos, 0, int(data[pos]), 0))
-    assert dev_tokens == [tuple(t) for t in ref.tolist()]
+    assert toks == [tuple(t) for t in ref.tolist()]
 
 
 @pytest.mark.parametrize("lazy", [False, True])
-def test_parse_extend_pallas_v3y_matches_oracle_tokens(lazy):
-    """Mark-fast-path walk (interpret) == oracle suffix_mode."""
-    from tpz.kernels import matchfinder as mf
-    from tpz.kernels.parse import parse_extend_pallas_v3y
+def test_parse_v3_grouped_matches_ungrouped(lazy):
+    """Blocks are independent rows: stage 1 over a batch split in two
+    groups (the second ending in a ragged tail block) gives exactly the
+    rows of the one-batch run."""
+    from tpz.kernels.deflate_pipeline import _make_words, _stage1
+    from tpz.kernels.matchfinder import BLOCK, FWD_PAD, WINDOW
 
-    if not oracle.available():
-        pytest.skip("oracle not built")
-    window, block, n_blocks, restart = 512, 1024, 3, 256
-    n = n_blocks * block - 100
-    raw = corpus.mixed(n, seed=321)
-    data = np.frombuffer(raw, np.uint8)
-    span = np.zeros(window + n_blocks * block + 512, np.uint8)
-    span[window:window + n] = data
-    m = window + block + 512
-    idx = np.arange(n_blocks)[:, None] * block + np.arange(m)[None, :]
-    blocks = jnp.asarray(span[idx].astype(np.int32))
-    words = mf.words_at(blocks)
-    span_off = jnp.asarray((np.arange(n_blocks) * block).astype(np.int32))
-    block_len = jnp.asarray(np.minimum(
-        n - np.arange(n_blocks) * block, block).astype(np.int32))
-
-    pk1, pk2, cap_at = mf.suffix_screen_w(
-        words, span_off, jnp.int32(n), 8, window, block, 258, 16, restart)
-    words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-    sl = slice(window, window + block)
-    reach, mlen, mdist = parse_extend_pallas_v3y(
-        pk1[:, sl], pk2[:, sl], cap_at[:, sl], words_i32,
-        block_len[:, None], window, 258, 16, lazy=lazy, restart=restart,
-        nblk=2, interpret=True)
-    reach, mlen, mdist = map(np.asarray, (reach, mlen, mdist))
-    bl = np.asarray(block_len)
-
-    ref = oracle.lzss_tokenize(
-        raw, oracle.params_array(window=window, max_chain=8,
-                                 block_size=block, lazy=lazy, n_extend=2,
-                                 screen_bytes=16, suffix_mode=True,
-                                 restart=restart))
-    dev_tokens = []
-    for b in range(n_blocks):
-        for p in np.nonzero((reach[b] > 0) & (np.arange(block) < bl[b]))[0]:
-            pos = b * block + int(p)
-            ln = int(mlen[b, p])
-            if ln >= 3:
-                dev_tokens.append((pos, ln, 0, int(mdist[b, p])))
-            else:
-                dev_tokens.append((pos, 0, int(data[pos]), 0))
-    assert dev_tokens == [tuple(t) for t in ref.tolist()]
+    nb = 3
+    n = nb * BLOCK - 4000
+    data = corpus.mixed(n, seed=55)
+    span = np.zeros(WINDOW + nb * BLOCK + FWD_PAD, np.uint8)
+    span[WINDOW:WINDOW + n] = np.frombuffer(data, np.uint8)
+    words = _make_words(jnp.asarray(span))
+    span_off = jnp.asarray((np.arange(nb) * BLOCK).astype(np.int32))
+    block_len = jnp.asarray(
+        np.minimum(n - np.arange(nb) * BLOCK, BLOCK).astype(np.int32))
+    whole = _stage1(words, span_off, jnp.int32(n), block_len, 8, lazy)
+    parts = [_stage1(words[g], span_off[g], jnp.int32(n), block_len[g], 8,
+                     lazy) for g in (slice(0, 1), slice(1, 3))]
+    for i, a in enumerate(whole):
+        b = np.concatenate([np.asarray(p[i]) for p in parts], axis=0)
+        assert np.array_equal(np.asarray(a), b), i
 
 
-def test_suffix_screen_chunked_identity():
-    """lax.map-chunked screening (HBM-bounded, round 3) is bit-identical
-    to the unchunked screen across a chunk boundary with ragged
-    last-chunk padding."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("level", [1, 6])
+def test_compress_many_uneven_batch_matches_oracle(level):
+    """A batch whose first buffer ends exactly on a block boundary: the
+    next buffer's bytes sit right behind it in the shared span and must
+    not change its candidates near the end (each member equals the
+    oracle's encode of that buffer alone)."""
+    from tpz.codecs.deflate import DeflateConfig
+    from tpz.kernels import deflate_pipeline as dp
+    from tpz.kernels.matchfinder import BLOCK
 
-    from tpz.kernels.matchfinder import (suffix_screen_w,
-                                         suffix_screen_w_chunked)
-    from tpz.utils import corpus
-
-    window, block, fwd = 512, 1024, 512
-    nb = 11
-    data = np.frombuffer(corpus.mixed(nb * block, seed=31), np.uint8)
-    span = np.zeros(window + nb * block + fwd, np.uint8)
-    span[window:window + data.size] = data
-    d = span.astype(np.uint32)
-    w = (d | (np.roll(d, -1) << 8) | (np.roll(d, -2) << 16)
-         | (np.roll(d, -3) << 24))
-    M = window + block + fwd
-    words = np.zeros((nb, M), np.uint32)
-    for b in range(nb):
-        words[b] = w[b * block:b * block + M]
-    so = jnp.asarray((np.arange(nb) * block).astype(np.int32))
-    slen = jnp.int32(data.size)
-    a = suffix_screen_w(jnp.asarray(words), so, slen, 4, window, block,
-                        258, 16)
-    c = suffix_screen_w_chunked(jnp.asarray(words), so, slen, 4, window,
-                                block, 258, 16, chunk=4)
-    for x, y in zip(a, c):
-        assert np.array_equal(np.asarray(x), np.asarray(y))
-
-
-@pytest.mark.parametrize("lazy", [False, True])
-def test_parse_extend_v3z_matches_v3y(lazy):
-    """Lane-parallel vectorized walk (round 5) is token-identical to the
-    scalar-chain v3y walk — identical micro-step state machine, so the
-    outputs must match bit-for-bit at every visited position."""
-    import jax
-    import jax.numpy as jnp
-
-    from tpz.kernels import matchfinder as mf
-    from tpz.kernels.parse import (parse_extend_pallas_v3y,
-                                   parse_extend_v3z)
-
-    window, block, n_blocks, restart = 512, 1024, 3, 256
-    n = n_blocks * block - 100
-    raw = corpus.mixed(n, seed=654)
-    data = np.frombuffer(raw, np.uint8)
-    span = np.zeros(window + n_blocks * block + 512, np.uint8)
-    span[window:window + n] = data
-    m = window + block + 512
-    idx = np.arange(n_blocks)[:, None] * block + np.arange(m)[None, :]
-    blocks = jnp.asarray(span[idx].astype(np.int32))
-    words = mf.words_at(blocks)
-    span_off = jnp.asarray((np.arange(n_blocks) * block).astype(np.int32))
-    block_len = jnp.asarray(np.minimum(
-        n - np.arange(n_blocks) * block, block).astype(np.int32))
-
-    pk1, pk2, cap_at = mf.suffix_screen_w(
-        words, span_off, jnp.int32(n), 8, window, block, 258, 16, restart)
-    words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-    sl = slice(window, window + block)
-    args = (pk1[:, sl], pk2[:, sl], cap_at[:, sl], words_i32,
-            block_len[:, None], window, 258, 16)
-    ry, my, dy = parse_extend_pallas_v3y(
-        *args, lazy=lazy, restart=restart, nblk=2, interpret=True)
-    rz, mz, dz = parse_extend_v3z(*args, lazy=lazy, restart=restart)
-    # Grouped dispatch path (round 5: lax.map over TPZ_V3Z_GROUP-block
-    # groups keeps compile time span-independent): GB=2 forces grouping
-    # AND the ragged tail pad with these 3 blocks.
-    os.environ["TPZ_V3Z_GROUP"] = "2"
-    try:
-        rg, mg, dg = parse_extend_v3z(*args, lazy=lazy, restart=restart)
-    finally:
-        del os.environ["TPZ_V3Z_GROUP"]
-    bl = np.asarray(block_len)
-    for b in range(n_blocks):
-        live = np.arange(block) < bl[b]
-        assert np.array_equal(np.asarray(ry)[b][live],
-                              np.asarray(rz)[b][live]), f"reach blk {b}"
-        assert np.array_equal(np.asarray(my)[b][live],
-                              np.asarray(mz)[b][live]), f"mlen blk {b}"
-        assert np.array_equal(np.asarray(dy)[b][live],
-                              np.asarray(dz)[b][live]), f"mdist blk {b}"
-        assert np.array_equal(np.asarray(rz)[b][live],
-                              np.asarray(rg)[b][live]), f"grp reach {b}"
-        assert np.array_equal(np.asarray(mz)[b][live],
-                              np.asarray(mg)[b][live]), f"grp mlen {b}"
-        assert np.array_equal(np.asarray(dz)[b][live],
-                              np.asarray(dg)[b][live]), f"grp mdist {b}"
+    data = corpus.mixed(4 * BLOCK + 777, seed=30)
+    datas = [data[:2 * BLOCK], data[2 * BLOCK:3 * BLOCK + 5],
+             data[3 * BLOCK + 5:]]
+    cfg = DeflateConfig(level=level)
+    outs = dp.compress_many(datas, cfg)
+    assert outs == [oracle.deflate_encode(d, cfg.params_array())
+                    for d in datas]
 
 
 @pytest.mark.slow
-def test_parse_v3z_fuzz_oracle_bytes():
-    """Randomized end-to-end fuzz: the v3z-parse fused encode stays
+def test_parse_v3_fuzz_oracle_bytes():
+    """Randomized end-to-end fuzz: the fused device encode stays
     byte-identical to the C++ oracle across levels, alphabets, sizes,
     and adversarial shapes (runs, incompressible)."""
-    import os
-
-    import jax
-
     from tpz.codecs.deflate import DeflateConfig
     from tpz.kernels import deflate_pipeline as dp
 
-    if not oracle.available():
-        pytest.skip("oracle not built")
-    os.environ["TPZ_PARSE"] = "v3z"
-    try:
-        rng = np.random.default_rng(7)
-        cases = []
-        for trial in range(6):
-            n = int(rng.integers(1_000, 220_000))
-            kind = trial % 3
-            if kind == 0:
-                data = bytes(corpus.mixed(n, seed=100 + trial))
-            elif kind == 1:
-                data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
-            else:
-                data = bytes(
-                    np.repeat(rng.integers(60, 70, n // 50 + 1,
-                                           dtype=np.uint8),
-                              50)[:n].tobytes())
-            lvl = int(rng.integers(1, 10))
-            cases.append((data, lvl))
-        for data, lvl in cases:
-            cfg = DeflateConfig(level=lvl)
-            blob = dp.compress(data, cfg)
-            ref = oracle.deflate_encode(data, cfg.params_array())
-            assert blob == ref, (len(data), lvl)
-    finally:
-        os.environ.pop("TPZ_PARSE", None)
+    rng = np.random.default_rng(7)
+    cases = []
+    for trial in range(6):
+        n = int(rng.integers(1_000, 220_000))
+        kind = trial % 3
+        if kind == 0:
+            data = bytes(corpus.mixed(n, seed=100 + trial))
+        elif kind == 1:
+            data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        else:
+            data = bytes(
+                np.repeat(rng.integers(60, 70, n // 50 + 1, dtype=np.uint8),
+                          50)[:n].tobytes())
+        lvl = int(rng.integers(1, 10))
+        cases.append((data, lvl))
+    for data, lvl in cases:
+        cfg = DeflateConfig(level=lvl)
+        blob = dp.compress(data, cfg)
+        ref = oracle.deflate_encode(data, cfg.params_array())
+        assert blob == ref, (len(data), lvl)

@@ -2,7 +2,7 @@
 
 Parity: the reference crate's prelude (`EncodeExt::encode` / `DecodeExt::
 decode` iterator adapters, [HIGH] SURVEY.md §2.1 "Encode/Decode traits").
-The TPU-native design is block-oriented, so the primary surface is
+The device pipelines are block-oriented, so the primary surface is
 whole-buffer `compress`/`decompress`; `CodecStream` provides the streaming/
 Action-driven shape of the crate's API at the host boundary.
 """

@@ -1,19 +1,20 @@
 """Raw DEFLATE codec (RFC 1951).
 
 Parity: reference crate src/deflate/ `Deflater`/`Inflater` ([MED] SURVEY.md
-§2.1). Two encode backends share "parse spec v1" and produce identical
-bytes for the same profile:
-  - "oracle": C++ CPU path (cpp/deflate.cc) — also the decode path
-  - "tpu":    device pipeline (tpz/kernels/deflate_pipeline.py)
-  - "auto":   tpu when a non-CPU jax backend + the pipeline are usable,
-              else oracle
+§2.1). Two backends share "parse spec v3" and produce identical bytes for
+the same profile:
+  - "oracle": C++ CPU path (cpp/deflate.cc)
+  - "device": the JAX pipelines (tpz/kernels/deflate_pipeline.py,
+              inflate_pipeline.py) on JAX's configured platform
+  - "auto":   device when that platform is an accelerator, else oracle
+(tpz/device.py decides; a chosen device path raises its own errors).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tpz import oracle
+from tpz import device, oracle
 from tpz.errors import DataError
 
 
@@ -74,19 +75,10 @@ class DeflateConfig:
 def compress(data: bytes, level: int = 6, backend: str = "auto",
              config: DeflateConfig | None = None) -> bytes:
     cfg = config or DeflateConfig(level=level)
-    if backend in ("auto", "tpu"):
-        try:
-            from tpz.kernels import deflate_pipeline
+    if device.use_device(backend):
+        from tpz.kernels import deflate_pipeline
 
-            if deflate_pipeline.usable(explicit=(backend == "tpu")):
-                return deflate_pipeline.compress(data, cfg)
-            raise RuntimeError("device pipeline not usable")
-        except Exception:
-            # "auto" falls back to the oracle when the accelerator is
-            # unavailable (e.g. the chip is held by another process and
-            # backend init fails); an explicit "tpu" request surfaces it.
-            if backend == "tpu":
-                raise
+        return deflate_pipeline.compress(data, cfg)
     return oracle.deflate_encode(data, cfg.params_array())
 
 
@@ -97,16 +89,10 @@ def compress_indexed(data: bytes, level: int = 6, backend: str = "auto",
     (stream, block_bits|None, block_lens|None); the oracle fallback has no
     index."""
     cfg = config or DeflateConfig(level=level)
-    if backend in ("auto", "tpu"):
-        try:
-            from tpz.kernels import deflate_pipeline
+    if device.use_device(backend):
+        from tpz.kernels import deflate_pipeline
 
-            if deflate_pipeline.usable(explicit=(backend == "tpu")):
-                return deflate_pipeline.compress_indexed(data, cfg)
-            raise RuntimeError("device pipeline not usable")
-        except Exception:
-            if backend == "tpu":
-                raise
+        return deflate_pipeline.compress_indexed(data, cfg)
     return oracle.deflate_encode(data, cfg.params_array()), None, None
 
 
@@ -131,22 +117,19 @@ def decompress_prefix(data: bytes, backend: str = "auto") -> tuple[bytes, int]:
     """Decode a deflate stream that may be followed by more data (framing
     trailers). Returns (plaintext, consumed_bytes).
 
-    backend="tpu": the host-side segment indexer (SURVEY.md §7.4 route 2,
-    cpp InflateIndex) cuts ANY stream — ours or foreign, no side-car
-    needed — into 64 KiB-output segments that decode block-parallel on
-    device; shapes the indexer declines fall back to the host inflate."""
-    if backend == "tpu":
+    On the device path the host-side segment indexer (SURVEY.md §7.4
+    route 2, cpp InflateIndex) cuts ANY stream — ours or foreign, no
+    side-car needed — into 64 KiB-output segments that decode
+    block-parallel on device; streams the indexer or the table scan
+    declines (both counted in tpz.device.declines) take the host inflate."""
+    if device.use_device(backend):
         from tpz.kernels import inflate_pipeline
 
-        if not inflate_pipeline.usable(explicit=True):
-            # Never silently time/serve the host path under an explicit
-            # device request (it would mislabel benchmarks and hide a
-            # dead backend); "auto" remains the graceful mode.
-            raise RuntimeError("tpu backend requested but unusable")
         idx = inflate_pipeline.index_stream(data)
         if idx is not None:
             plain = inflate_pipeline.decompress_segmented(data, idx)
-            return plain, idx["consumed"]
+            if plain is not None:
+                return plain, idx["consumed"]
     return oracle.inflate(data)
 
 
@@ -155,14 +138,8 @@ def compress_many(datas, level: int = 6, backend: str = "auto",
     """Batch encode: one device invocation for many independent streams
     (amortizes per-call dispatch; see deflate_pipeline.compress_many)."""
     cfg = config or DeflateConfig(level=level)
-    if backend in ("auto", "tpu"):
-        try:
-            from tpz.kernels import deflate_pipeline
+    if device.use_device(backend):
+        from tpz.kernels import deflate_pipeline
 
-            if deflate_pipeline.usable(explicit=(backend == "tpu")):
-                return deflate_pipeline.compress_many(list(datas), cfg)
-            raise RuntimeError("device pipeline not usable")
-        except Exception:
-            if backend == "tpu":
-                raise
+        return deflate_pipeline.compress_many(list(datas), cfg)
     return oracle.deflate_encode_many(list(datas), cfg.params_array())

@@ -4,7 +4,7 @@ Parity: reference crate src/lzss/ public `LzssEncoder`/`LzssDecoder`
 emitting `LzssCode::{Symbol(u8), Reference{len, pos}}` ([HIGH] SURVEY.md
 §2.1). The crate's standalone LZSS serializes codes via a caller-supplied
 scheme; our equivalent exposes the token stream directly (as a numpy
-array — the TPU-native "iterator of LzssCode") plus a simple tagged-byte
+array — the block-oriented "iterator of LzssCode") plus a simple tagged-byte
 serialization for self-contained round-trips:
 
   flag byte per 8 codes (bit i set => code i is a reference), literals as

@@ -69,8 +69,8 @@ def decompress_prefix(data: bytes,
                       backend: str = "auto") -> tuple[bytes, int]:
     """Decode one zlib stream that may be followed by more data.
     Returns (plaintext, consumed_bytes incl. header and trailer).
-    backend="tpu" decodes the DEFLATE body device-parallel via the host
-    segment indexer (no side-car needed; Adler-32 still checked)."""
+    On the device path the DEFLATE body decodes device-parallel via the
+    host segment indexer (no side-car needed; Adler-32 still checked)."""
     if len(data) < 6:
         raise UnexpectedEof("zlib stream too short")
     check_header(data[0], data[1])

@@ -71,8 +71,8 @@ DEFLATE_END_OF_BLOCK = 256
 # Two-level LSB decode-table layout for the device symbol walk (round 4):
 # level-1 indexed by the low INFLATE_L1_BITS of the peek; codes longer
 # than L1_BITS escape (entry len == 31) into 32-entry level-2 chunks
-# indexed by peek bits L1_BITS..L1_BITS+4. Small enough that both
-# tables live in SMEM per walk chain. A (legal but pathological) tree
+# indexed by peek bits L1_BITS..L1_BITS+4: 28 KiB per block, small
+# enough to stay cache-resident during its walk. A (legal but pathological) tree
 # whose long codes overflow the L2 capacity declines to the host
 # decoder (scan reports lit_bits = -1).
 INFLATE_L1_BITS = 10

@@ -28,8 +28,7 @@ STORED_CHUNK = 32768  # must match cpp/deflate.cc kStoredChunk
 
 
 def _bitlen(x, maxbits):
-    """bit_length via vector compares (gathers are ~0.14 G elem/s on this
-    chip; elementwise runs ~2000x faster per element)."""
+    """bit_length via vector compares (elementwise, no table gather)."""
     c = jnp.zeros_like(x)
     for k in range(maxbits):
         c = c + (x >= (1 << k)).astype(jnp.int32)
@@ -107,7 +106,7 @@ def assemble_stream_v2(data_block, is_token, mlen, mdist, table320,
                        body_off, btype, block_len, chunk1_off,
                        header, out_buf):
     """Compacted DEFLATE bitpack (round-2 stage2, byte-identical to
-    assemble_stream + token_slots but ~2x cheaper on this chip):
+    assemble_stream + token_slots with far fewer scatter updates):
 
     1. Per-position slot SPECS are closed-form (symbol index into a
        combined 320-entry table, extra bits/value, live mask) — no code
@@ -190,8 +189,7 @@ def assemble_stream_v2(data_block, is_token, mlen, mdist, table320,
     # row-major order (positions ascend within a row, blocks are laid out
     # in stream order), and contributions to one word occupy disjoint bit
     # ranges, so sum == or. That turns the former 2-scatter (~33 M updates
-    # at this chip's per-UPDATE scatter pricing, the round-2 stage2 floor)
-    # into: cumsum over the contribution stream -> per-word value =
+    # per 16 MiB) into: cumsum over the contribution stream -> per-word value =
     # difference of the prefix at consecutive segment-lasts -> one parking
     # sort + a scatter of only ~cap_words updates. Headers (few, at
     # absolute offsets) keep a plain scatter.

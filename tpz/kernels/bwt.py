@@ -54,7 +54,7 @@ def _bwt_batched(w: jax.Array, n: jax.Array, rounds: int):
         diff = diff.at[:, 0].set(True)
         ranks_sorted = jnp.cumsum(diff.astype(jnp.int32), axis=1)
         # Write back to position order via an inverse-permutation sort
-        # (scatter costs per update on this chip; a 1-key sort doesn't).
+        # (one 1-key sort instead of a scatter).
         _, r = jax.lax.sort((sidx, ranks_sorted), dimension=1, num_keys=1)
         return r
 
@@ -144,11 +144,12 @@ def cyclic_words(blocks: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 def bwt_blocks(blocks: np.ndarray, lengths: np.ndarray):
     """blocks: [NB, N] uint8 (zero-padded); lengths: [NB]. Returns
     (last [NB, N] uint8, orig [NB] int) computed on device."""
-    from tpz.kernels.device_quirks import fetch
+    from tpz import device
 
     NB, N = blocks.shape
     rounds = max(1, (N - 1).bit_length())  # bound; early exit is typical
     w = cyclic_words(blocks, lengths)
     last, orig = _bwt_batched(jnp.asarray(w),
                               jnp.asarray(lengths.astype(np.int32)), rounds)
-    return fetch(last).astype(np.uint8), fetch(orig)
+    last, orig = device.fetch_many(last, orig)
+    return last.astype(np.uint8), orig

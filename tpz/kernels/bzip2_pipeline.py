@@ -1,4 +1,4 @@
-"""TPU BZip2 pipeline, both directions (SURVEY.md §2.1 BZip2 row, §7 PR4).
+"""Device BZip2 pipeline, both directions (SURVEY.md §2.1 BZip2 row, §7 PR4).
 
 ENCODE (round 3, all-device): host C++ RLE1 + block split (byte-serial,
 memory-speed) -> ONE device program running batched BWT + used-map +
@@ -11,10 +11,10 @@ cpp/bzip2.cc EncodeBlockFromMtf decision-for-decision).
 DECODE (round 3, all-device): host header-only scan (magic splitter +
 selectors/tables, cpp Bzip2ScanHeaders) -> ONE device program running
 the multi-table symbol walk + MTF^-1 + RLE2^-1 (bzip2_walk.py) + run
-expansion + the segment-walk iBWT (ibwt_walk.py) -> host RLE1^-1 +
+expansion + the iBWT (ibwt_walk.py) -> host RLE1^-1 +
 per-block CRCs + per-stream EOS combined-CRC checks. Shapes the walks
-decline (code lengths > 17, periodic blocks, corrupt streams) fall back
-to the host decoder.
+decline (code lengths > 17, periodic blocks, corrupt streams) go to the
+host decoder and are counted in tpz.device.declines.
 
 Blocks are padded to a power-of-two bucket so jit caches stay small.
 """
@@ -24,12 +24,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-
-
-def usable(explicit: bool = False) -> bool:
-    from tpz.kernels.deflate_pipeline import usable as _u
-
-    return _u(explicit)
 
 
 def _bucket(n: int) -> int:
@@ -116,7 +110,7 @@ def bwt_mtf_rle2_blocks(blocks: np.ndarray, lengths: np.ndarray):
     import jax
     import jax.numpy as jnp
 
-    from tpz.kernels.device_quirks import fetch, fetch_many
+    from tpz import device
 
     if _fused_bwt_mtf is None:
         _fused_bwt_mtf = functools.partial(
@@ -129,9 +123,8 @@ def bwt_mtf_rle2_blocks(blocks: np.ndarray, lengths: np.ndarray):
     rounds = max(1, (N - 1).bit_length())
     orig, syms, sym_len, used, n_used = _fused_bwt_mtf(
         jnp.asarray(w), jnp.asarray(n), rounds=rounds)
-    sym_len_np, used_np, n_used_np, orig_np = map(
-        np.asarray, fetch_many(sym_len, used, n_used, orig))
-    syms_np = np.asarray(fetch(syms))
+    sym_len_np, used_np, n_used_np, orig_np, syms_np = device.fetch_many(
+        sym_len, used, n_used, orig, syms)
     return orig_np, syms_np, sym_len_np, used_np, n_used_np
 
 
@@ -168,8 +161,7 @@ def compress_many(datas, level: int = 9) -> list[bytes]:
     import jax
     import jax.numpy as jnp
 
-    from tpz import oracle
-    from tpz.kernels.device_quirks import fetch, fetch_many
+    from tpz import device, oracle
 
     global _fused_full
     if _fused_full is None:
@@ -214,10 +206,10 @@ def compress_many(datas, level: int = 9) -> list[bytes]:
         jnp.asarray(np.asarray(all_crcs, np.uint32)),
         jnp.asarray(np.asarray(buf_start, bool)),
         rounds=rounds, cap_words=cap_words)
-    body_off_np, end_np = map(np.asarray, fetch_many(body_off, end_bits))
+    body_off_np, end_np = device.fetch_many(body_off, end_bits)
     used_words = (int(end_np[-1]) + 31) // 32
     q = min((used_words + (1 << 16) - 1) >> 16 << 16, cap_words)
-    body = np.asarray(fetch(words[:q])).astype(">u4").view(np.uint8)
+    body = device.fetch(words[:q]).astype(">u4").view(np.uint8)
 
     hdr = b"BZh" + bytes([0x30 + max(1, min(9, level))])
     for i, ln, crc, b0 in metas:
@@ -255,7 +247,7 @@ def decompress_walk_many(datas) -> list:
     (walk + expand + iBWT) when their level buckets match — the decode
     side of the compress_many serving shape. Entries come back None
     where the walk declines (caller falls back per stream)."""
-    from tpz import oracle
+    from tpz import device, oracle
     from tpz.errors import DataError
     from tpz.kernels import bzip2_walk
 
@@ -266,6 +258,8 @@ def decompress_walk_many(datas) -> list:
             scans.append(None)
             continue
         s = oracle.bzip2_scan_headers(data)
+        if s is None:
+            device.decline("bzip2_scan")
         scans.append(s if s is not None and len(s["sym_bits"]) else None)
     # Group by bucket so one jit shape covers the batch.
     groups = {}
@@ -298,6 +292,7 @@ def decompress_walk_many(datas) -> list:
                      - s["sym_bits"] // 8).astype(np.int64)
             if int(spans.max()) > scap:
                 ok_group = False
+                device.decline("bzip2_slice")
                 break
             for b in range(cnt):
                 s0 = int(s["sym_bits"][b]) // 8
@@ -315,10 +310,12 @@ def decompress_walk_many(datas) -> list:
             sl = slice(b0, b0 + cnt)
             b0 += cnt
             if int(err[sl].sum()) != 0:
+                device.decline("bzip2_walk")
                 continue
             abs_ends = ((s["sym_bits"] // 8) * 8
                         + endbits[sl].astype(np.int64))
             if not _eos_ok(datas[i], abs_ends, s["crcs"]):
+                device.decline("bzip2_eos")
                 continue
             lens_i = lens[sl]
             flat = np.zeros(int(lens_i.sum()), np.uint8)
@@ -333,7 +330,7 @@ def decompress_walk_many(datas) -> list:
                 results[i] = oracle.bzip2_rle1_inverse(
                     flat, offs2, lens_i.astype(np.int64), s["crcs"])
             except DataError:
-                pass
+                device.decline("bzip2_crc")
     return results
 
 
@@ -373,8 +370,8 @@ def decompress_walk(data: bytes) -> bytes | None:
     """ALL-device decode (round 3; closes VERDICT r2 missing #1's decode
     half): host parses only block HEADERS (magic splitter + selector/
     table sections, cpp Bzip2ScanHeaders); ONE device program then runs
-    the multi-table Huffman symbol walk + MTF^-1 + RLE2^-1 (Mosaic,
-    tpz/kernels/bzip2_walk.py) -> run expansion -> segment-walk iBWT ->
+    the multi-table Huffman symbol walk + MTF^-1 + RLE2^-1
+    (tpz/kernels/bzip2_walk.py) -> run expansion -> iBWT ->
     plaintext rows. Host finishes with RLE1^-1 + per-block CRCs (C++)
     and the EOS combined-CRC check. Returns None on shapes the walk
     declines — caller falls back."""
@@ -431,13 +428,14 @@ def decompress(data: bytes) -> bytes | None:
     last columns + device iBWT. Returns None when neither supports the
     stream shape — the caller falls back to the serial oracle, which
     handles every shape."""
-    out = decompress_walk(data)
-    if out is not None:
-        return out
-    from tpz import oracle
+    from tpz import device, oracle
     from tpz.errors import DataError
     from tpz.kernels.ibwt_walk import ibwt_blocks_fast
 
+    out = decompress_walk(data)
+    if out is not None:
+        return out
+    device.decline("bzip2_walk")
     scan = oracle.bzip2_scan_to_last(data)
     if scan is None:
         return None
@@ -451,6 +449,7 @@ def decompress(data: bytes) -> bytes | None:
         last[b, : lens[b]] = blob[offs[b] : offs[b] + lens[b]]
     out_rows = ibwt_blocks_fast(last, lens, origs)
     if out_rows is None:
+        device.decline("bzip2_ibwt")
         return None
     flat = np.zeros(int(lens.sum()), np.uint8)
     pos = 0

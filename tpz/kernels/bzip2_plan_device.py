@@ -14,7 +14,7 @@ emitted bits are identical to the host coder:
     <= ~900k frequency sums), canonical codes,
   - selectors MTF'd + unary, delta-coded lengths, MSB-first symbol bits.
 
-Group costs ride the MXU: ghist [G, A] x lens [T, A] in bf16 with f32
+Group costs are one matrix product: ghist [G, A] x lens [T, A] in bf16 with f32
 accumulation is exact (counts <= 50, lengths <= 17). The only scatter is
 the one-time group-histogram build.
 """

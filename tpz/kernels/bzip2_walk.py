@@ -2,22 +2,24 @@
 
 The round-2 device decode ran only the iBWT on device; the multi-table
 Huffman symbol walk, MTF^-1 and RLE2^-1 stayed host C++
-(cpp/bzip2.cc DecodeBlockToLast). This module moves them into a Mosaic
-walk so the WHOLE decode after header parsing is one device program:
+(cpp/bzip2.cc DecodeBlockToLast). This module moves them into a
+Pallas-Triton walk so the WHOLE decode after header parsing is one
+device program:
 
   host   Bzip2ScanHeaders: block magics (lbzip2-style splitter), per
          block the selector list, 6x258 code lengths, initial MTF list,
          orig/crc — a few KB of header bits, no symbol decode.
-  device ONE jit: this symbol walk (Huffman decode with the 50-symbol
-         table switch, MTF list as two 128-lane registers, RLE2 runs
+  device ONE jit: this symbol walk (one program per block: Huffman
+         decode with the 50-symbol table switch, the MTF list as a
+         256-lane rank vector in registers, RLE2 runs
          accumulated arithmetically and emitted as (byte, count)
          records) -> XLA run expansion (boundary scatter + cummax) ->
-         the segment-walk iBWT (ibwt_walk.ibwt_body) -> plaintext rows.
+         the iBWT (ibwt_walk.ibwt_body) -> plaintext rows.
   host   RLE1^-1 + per-block CRC + EOS combined-CRC check (C++).
 
-Table layout: 15-bit level-1 (sym << 5 | len; escape len == 31 points
-into a tiny level-2 indexed by the next 2 bits). Code lengths <= 17 —
-both our encoder and libbzip2's cap — or the header scan declines.
+Table entries are sym << 5 | len; an escape (len == 31) points into a
+level-2 chunk indexed by the next 5 bits. Code lengths <= 17 — both our
+encoder and libbzip2's cap — or the header scan declines.
 
 Records pack count << 8 | byte (count <= 900000 < 2^21). Every emitted
 record covers >= 1 output byte, so a block emits at most n+1 records —
@@ -37,22 +39,13 @@ import numpy as np
 from tpz.kernels.ibwt_walk import ibwt_body
 
 SEL_CAP = 18432
-L2_CAP = 2048
 GROUP = 50
 
 
-def _nblk_for(N: int) -> int:
-    """Interleaved chains per kernel body, bounded by VMEM: each chain
-    holds ~(6 L1 tables 768 KB + records 4N + slice N + selectors).
-    Small (level 1-3) blocks afford 4-way interleave; 900k blocks 2."""
-    return 2 if N >= (1 << 19) else 4
-
-
-# Round-4 table layout: 12-bit level-1 + 5-bit (32-entry) level-2 chunks
-# per table (12 + 5 = 17 = the bzip2 code-length cap) replace the flat
-# 15-bit level-1. All 6 tables of a block fuse to [t][L1 4096 | L2 8256]
-# and live in SMEM per chain — both decode-table reads per symbol become
-# 8.8 ns scalar loads. bzip2 trees are DEEP (measured: up to 240 of 258
+# Table layout: 12-bit level-1 + 5-bit (32-entry) level-2 chunks per
+# table (12 + 5 = 17 = the bzip2 code-length cap). All 6 tables of a
+# block fuse to [t][L1 4096 | L2 8256]; a symbol costs two dependent
+# table reads, mostly level-1 hits. bzip2 trees are DEEP (measured: up to 240 of 258
 # codes past 11 bits on the mixed corpus), so the L2 capacity is sized
 # to the worst case — 258 long codes x one 32-entry chunk each — and
 # can never overflow for the format's alpha <= 258.
@@ -112,203 +105,140 @@ def build_tables(lens: np.ndarray, n_useds: np.ndarray):
     return tab.reshape(NB, 6 * TAB_STRIDE)
 
 
-# Per-chain SMEM stream window (words). The walk's bitpos is monotone,
-# so a sliding window + conditional DMA refill turns the two stream
-# reads per symbol from 28 ns VMEM row-load+lane-selects into 8.8 ns
-# SMEM scalar loads (round-4 probe_extract finding; a level-9 block's
-# ~1 MiB slice cannot live in SMEM whole). Refills cost a ~16 KiB DMA
-# every ~5k symbols — noise against the walk.
-STREAM_WIN = 4096
-
-
-def _walk_kernel(nu_ref, ns_ref, sb_ref, s_hbm, t_hbm,
-                 mi_ref, out_ref, meta_ref, win_ref, tab_ref, base_ref,
-                 dma_sem, *, S: int, SW: int, NBLK: int, TROW: int):
-    """One grid step = NBLK blocks' symbol walks."""
+def _walk_kernel(nu_ref, ns_ref, sb_ref, s_ref, t_ref, sel_ref, mi_ref,
+                 rec_ref, meta_ref, *, S: int, SW: int):
+    """One single-warp program per block walks its symbols: two-level
+    Huffman lookup in the selected table, MTF^-1, and RLE2 runs
+    accumulated arithmetically and emitted as (count << 8 | byte)
+    records. The MTF list lives in registers as a rank vector: slot i
+    holds the byte mtf_init[i] and its current list position, so a
+    lookup is one masked reduction and a move-to-front one elementwise
+    update (no lane shifts)."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    g0 = pl.program_id(0)
+    g = pl.program_id(0)
     zero = jnp.int32(0)
-    one31 = jnp.int32(31)
-    WINW = min(STREAM_WIN, SW)
-
-    # s_hbm / t_hbm arrive FLAT (1-D): whole-tile (1024-word) slices
-    # into flat 1-D SMEM slices — the only DMA form this chip's Mosaic
-    # accepts (probe_dma_align3/4, 2026-08-20).
-    for c in range(NBLK):
-        cpt = pltpu.make_async_copy(
-            t_hbm.at[pl.ds((g0 * NBLK + c) * TROW, TROW)],
-            tab_ref.at[pl.ds(c * TROW, TROW)], dma_sem)
-        cpt.start()
-        cpt.wait()
-        cp = pltpu.make_async_copy(
-            s_hbm.at[pl.ds((g0 * NBLK + c) * SW, WINW)],
-            win_ref.at[pl.ds(c * WINW, WINW)], dma_sem)
-        cp.start()
-        cp.wait()
-        base_ref[c] = 0
+    slot = jax.lax.broadcasted_iota(jnp.int32, (256,), 0)
+    list0 = mi_ref[pl.ds(g * 256, 256)]
+    sbase = g * SW
+    tbase = g * (6 * TAB_STRIDE)
+    selbase = g * SEL_CAP
+    rbase = g * S
+    nsel = ns_ref[g]
+    eob = nu_ref[g] + 1
 
     def srl(x, s):
         return jax.lax.shift_right_logical(x, s)
 
-    def step_chain(c, st):
-        (bitpos, gi, gpos, nrec, run_acc, run_bit, held, sym_h, l0, l1r,
-         orow, done, err) = st
-        act = ~done & (nrec < S)
+    def cond(st):
+        return (st[10] == 0) & (st[3] < S)
 
-        # Current table id from the selector list (appended to the
-        # fused SMEM scratch at SEL_OFF — a scalar load).
-        t = tab_ref[c * TROW + jnp.int32(6 * TAB_STRIDE) + gi]
-        # 32-bit MSB window at bitpos, read from the chain's SMEM
-        # sliding window (refilled by DMA when the cursor nears its
-        # end; `need` only fires while the chain is active).
-        w = jnp.minimum(bitpos >> 5, jnp.int32(SW - 2))
+    def body(st):
+        (bitpos, gi, gpos, nrec, run_acc, run_bit, held, sym_h, head, rank,
+         _, err) = st
+        t = sel_ref[selbase + jnp.clip(gi, 0, SEL_CAP - 1)]
+        # 32-bit MSB window at bitpos.
+        w = jnp.minimum(bitpos >> 5, SW - 2)
         sh = bitpos & 31
-        need = act & ((w - base_ref[c]) >= jnp.int32(WINW - 1))
-
-        @pl.when(need)
-        def _():
-            # Tile-aligned window base (1024 words); the mul form is
-            # what Mosaic's divisibility analysis can prove.
-            nb = jax.lax.shift_right_logical(
-                jnp.minimum(w, jnp.int32(SW - WINW)), 10) * 1024
-            cpw = pltpu.make_async_copy(
-                s_hbm.at[pl.ds((g0 * NBLK + c) * SW + nb, WINW)],
-                win_ref.at[pl.ds(c * WINW, WINW)], dma_sem)
-            cpw.start()
-            cpw.wait()
-            base_ref[c] = nb
-
-        woff = c * WINW + jnp.clip(w - base_ref[c], 0, WINW - 2)
-        w0 = win_ref[woff]
-        w1 = win_ref[woff + 1]
+        w0 = s_ref[sbase + w]
+        w1 = s_ref[sbase + w + 1]
         top = jax.lax.shift_left(w0, sh) | jnp.where(
-            sh > 0, srl(w1, (32 - sh) & one31), 0)
-        # Two-level SMEM lookup: table t spans [t * TAB_STRIDE,
-        # (t+1) * TAB_STRIDE) of the fused scratch ([L1 | L2] per table).
-        peek = srl(top, 32 - L1_BITS)
-        tb = c * TROW + t * jnp.int32(TAB_STRIDE)
-        e1 = tab_ref[tb + peek]
+            sh > 0, srl(w1, (32 - sh) & 31), 0)
+        # Two-level lookup: table t spans [t * TAB_STRIDE, (t+1) *
+        # TAB_STRIDE) of the block's fused tables ([L1 | L2] per table).
+        tb = tbase + t * TAB_STRIDE
+        e1 = t_ref[tb + srl(top, 32 - L1_BITS)]
         esc = (e1 & 31) == 31
-        l2i = srl(e1, 5) + (srl(top, 32 - L1_BITS - 5) & 31)
-        e2 = tab_ref[tb + jnp.int32(L1W) + l2i]
+        e2 = t_ref[tb + L1W + srl(e1, 5) + (srl(top, 32 - L1_BITS - 5) & 31)]
         e = jnp.where(esc, e2, e1)
         ln = e & 31
-        sym_new = srl(e, 5)
-        consume = act & ~held
-        s = jnp.where(held, sym_h, sym_new)
-        eob = nu_ref[g0 * NBLK + c] + 1
-        # Reason bitmask (meta lane 1): diagnosable decline causes.
-        why = (jnp.where(consume & (ln == 0), 1, 0)
-               | jnp.where(consume & (gi >= ns_ref[g0 * NBLK + c]), 2, 0)
-               | jnp.where(act & (s > eob), 4, 0)
-               | jnp.where(act & (run_acc > (1 << 21)), 8, 0)
-               | jnp.where(act & (nrec >= S - 2), 16, 0))
+        consume = held == 0
+        s = jnp.where(consume, srl(e, 5), sym_h)
+        # Reason bitmask (meta word 1): diagnosable decline causes.
+        # (Bit flags via astype: a select between two Python literals
+        # lowers to an i1 that the Triton route cannot compare.)
+        why = ((consume & (ln == 0)).astype(jnp.int32)
+               | ((consume & (gi >= nsel)).astype(jnp.int32) << 1)
+               | ((s > eob).astype(jnp.int32) << 2)
+               | ((run_acc > (1 << 21)).astype(jnp.int32) << 3)
+               | ((nrec >= S - 2).astype(jnp.int32) << 4))
         bad = why != 0
 
         is_run = s <= 1
-        flush = act & ~is_run & (run_acc > 0)
-        is_eob = act & ~is_run & (run_acc == 0) & (s == eob)
-        is_plain = act & ~is_run & (run_acc == 0) & (s != eob) & ~bad
+        flush = ~is_run & (run_acc > 0)
+        is_eob = ~is_run & (run_acc == 0) & (s == eob)
+        is_plain = ~is_run & (run_acc == 0) & (s != eob) & ~bad
 
-        # MTF extract + move-to-front (registers only).
+        # MTF^-1: the slot at list position j holds the byte.
         j = jnp.clip(s - 1, 0, 255)
-        b_lo = jnp.sum(jnp.where(lane == (j & 127), l0, 0))
-        b_hi = jnp.sum(jnp.where(lane == (j & 127), l1r, 0))
-        byte = jnp.where(j < 128, b_lo, b_hi)
-        carry = jnp.sum(jnp.where(lane == 127, l0, 0))
-        r0 = jnp.roll(l0, 1, axis=1)
-        r1 = jnp.roll(l1r, 1, axis=1)
-        upd = is_plain
-        l0n = jnp.where(upd & ((lane <= j) | (j >= 128)),
-                        jnp.where(lane == 0, byte, r0), l0)
-        l1n = jnp.where(upd & (j >= 128) & (lane <= (j - 128)),
-                        jnp.where(lane == 0, carry, r1), l1r)
+        hit = rank == j
+        byte = jnp.sum(jnp.where(hit, list0, 0))
+        rank_n = jnp.where(is_plain,
+                           jnp.where(hit, 0, jnp.where(rank < j, rank + 1,
+                                                       rank)),
+                           rank)
+        head_n = jnp.where(is_plain, byte, head)
 
-        head = jnp.sum(jnp.where(lane == 0, l0, 0))
         emit = flush | is_plain
-        rec = jnp.where(flush,
-                        jax.lax.shift_left(run_acc, 8) | head,
-                        jnp.int32(1 << 8) | byte)
-        r_row = nrec >> 7
-        changed = emit & ((nrec & 127) == 0) & (nrec > 0)
-        orow_n = jnp.where(changed, jnp.zeros_like(orow), orow)
-        orow_n = jnp.where(emit & (lane == (nrec & 127)), rec, orow_n)
-        out_ref[c, pl.ds(r_row, 1), :] = orow_n
+        rec = jnp.where(flush, jax.lax.shift_left(run_acc, 8) | head,
+                        (1 << 8) | byte)
+        # Unconditional store: a non-emitting step writes past the last
+        # record, where the next emit (or the nrec mask) overrides it.
+        rec_ref[rbase + jnp.minimum(nrec, S - 1)] = rec
 
-        run_n = jnp.where(is_run & act & ~bad,
-                          run_acc + jax.lax.shift_left(s + 1, run_bit),
-                          jnp.where(flush, zero, run_acc))
-        run_b = jnp.where(is_run & act & ~bad, run_bit + 1,
+        run_on = is_run & ~bad
+        run_n = jnp.where(
+            run_on,
+            run_acc + jax.lax.shift_left(s + 1, jnp.minimum(run_bit, 30)),
+            jnp.where(flush, zero, run_acc))
+        run_b = jnp.where(run_on, run_bit + 1,
                           jnp.where(flush, zero, run_bit))
-        held_n = jnp.where(act, flush & ~bad, held)
-        sym_hn = jnp.where(flush, s, sym_h)
-        bitpos_n = jnp.where(consume & ~bad, bitpos + ln, bitpos)
-        gpos_n = jnp.where(consume & ~bad, gpos - 1, gpos)
+        step = consume & ~bad
+        gpos_n = jnp.where(step, gpos - 1, gpos)
         gi_n = jnp.where(gpos_n == 0, gi + 1, gi)
-        gpos_n = jnp.where(gpos_n == 0, jnp.int32(GROUP), gpos_n)
-        done_n = done | is_eob | bad
-        err_n = err | why | jnp.where(
-            (why != 0) & (err < 1024), (bitpos + 1) << 10, 0)
-        nrec_n = jnp.where(emit, nrec + 1, nrec)
-        return (bitpos_n, gi_n, gpos_n, nrec_n, run_n, run_b, held_n,
-                sym_hn, l0n, l1n, orow_n, done_n, err_n)
+        gpos_n = jnp.where(gpos_n == 0, GROUP, gpos_n)
+        err_n = err | why | jnp.where(bad & (err < 1024),
+                                      jax.lax.shift_left(bitpos + 1, 10), 0)
+        return (jnp.where(step, bitpos + ln, bitpos), gi_n, gpos_n,
+                jnp.where(emit, nrec + 1, nrec), run_n, run_b,
+                (flush & ~bad).astype(jnp.int32), jnp.where(flush, s, sym_h),
+                head_n, rank_n, (is_eob | bad).astype(jnp.int32), err_n)
 
-    def init_chain(c):
-        mi0 = mi_ref[c, pl.ds(0, 1), :]
-        mi1 = mi_ref[c, pl.ds(1, 1), :]
-        return (sb_ref[g0 * NBLK + c], zero, jnp.int32(GROUP), zero, zero,
-                zero, False, zero, mi0, mi1,
-                jnp.zeros((1, 128), jnp.int32), False, zero)
-
-    def cond(states):
-        alive = ~states[0][11] & (states[0][3] < S)
-        for c in range(1, NBLK):
-            alive = alive | (~states[c][11] & (states[c][3] < S))
-        return alive
-
-    def body(states):
-        return tuple(step_chain(c, states[c]) for c in range(NBLK))
-
-    states = jax.lax.while_loop(
-        cond, body, tuple(init_chain(c) for c in range(NBLK)))
-    for c in range(NBLK):
-        st = states[c]
-        row = (jnp.where(lane == 0, st[3], 0)          # nrec
-               + jnp.where(lane == 1, st[12], 0)       # err
-               + jnp.where(lane == 2, st[0], 0))       # end bitpos
-        meta_ref[c, pl.ds(0, 1), :] = row
+    init = (sb_ref[g], zero, jnp.int32(GROUP), zero, zero, zero, zero, zero,
+            mi_ref[g * 256], slot, zero, zero)
+    st = jax.lax.while_loop(cond, body, init)
+    meta_ref[g * 4] = st[3]        # nrec
+    meta_ref[g * 4 + 1] = st[11]   # err
+    meta_ref[g * 4 + 2] = st[0]    # end bitpos
+    meta_ref[g * 4 + 3] = zero
 
 
 def rec_cap_for(level: int) -> int:
     """Per-block RLE2 record bound for a stream level: every non-EOB
     symbol emits >= 1 output byte, so records <= block size + 1 <=
     level*100000 + 1 (+ slack). Single source of truth — the walk's
-    VMEM record-buffer sizing and every caller's cap derive from it
+    record-buffer sizing and every caller's cap derive from it
     (ADVICE r3 #1)."""
     return level * 100000 + 16
 
 
 def decode_blocks_device(scan: dict, slices: np.ndarray, N: int,
-                         interpret: bool | None = None,
+                         walk: str | None = None,
                          rec_cap: int | None = None):
     """scan = oracle.bzip2_scan_headers dict; slices [NB, SCAP] uint8
     (each block's symbol-bit region, byte-aligned at sym_bits//8).
-    Returns (plain_rows [NB, N] uint8, lens [NB], ok bool) — the fully
-    fused walk -> RLE2 expand -> iBWT program.
+    Returns (plain_rows [NB, N] uint8, lens [NB], err [NB], end bits
+    [NB], ok) — the fully fused walk -> RLE2 expand -> iBWT program.
 
-    rec_cap bounds the per-block RLE2 record count (every non-EOB
-    symbol emits >= 1 output byte, so records <= block size + 1 <=
-    level*100000 + 1). Passing it shaves the walk's VMEM record buffer
-    from the power-of-two N bucket to the true bound — at level 9 that
-    is ~2.4 MB of scoped VMEM per double-buffered grid step, the
-    difference between fitting and a 16 KB-over OOM at NBLK=2."""
-    from tpz.kernels.device_quirks import fetch_many
+    walk: "triton" or "interpret" (the symbol walk has no XLA twin),
+    by default tpz.device's choice for the platform. rec_cap bounds the per-block
+    RLE2 record count (every non-EOB symbol emits >= 1 output byte, so
+    records <= block size + 1 <= level*100000 + 1); passing it shrinks
+    the record buffer from the power-of-two N bucket to the true bound."""
+    from tpz import device
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    if walk is None:
+        walk = device.walk_mode(has_reference=False)
     NB, SCAP = slices.shape
     tab = build_tables(scan["lens"], scan["n_useds"])
     sym_local = (scan["sym_bits"] & 7).astype(np.int32)
@@ -325,94 +255,41 @@ def decode_blocks_device(scan: dict, slices: np.ndarray, N: int,
         jnp.asarray(sw), jnp.asarray(tab),
         jnp.asarray(scan["selectors"].astype(np.int32)),
         jnp.asarray(scan["mtf_init"].astype(np.int32)),
-        S=S, N=N, interpret=interpret)
-    plain, lens, err, endbits = map(np.asarray, fetch_many(*out))
+        S=S, N=N, walk=walk)
+    plain, lens, err, endbits = device.fetch_many(*out)
     ok = int(err.sum()) == 0
     return plain, lens, err, endbits, ok
 
 
 def _walk_call(n_used, nsel, sym_local, sw, tab, selectors, mtf_init,
-               *, S: int, interpret: bool, NBLK: int = 2):
-    """Just the Pallas symbol walk: returns (recs [NB, S], meta
-    [NB, 128]). Traceable; also used directly by tests."""
+               *, S: int, interpret: bool = False):
+    """The Pallas-Triton symbol walk: returns (recs [NB, S], meta
+    [NB, 4] = nrec, err, end bit). Traceable; also used by tests."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     NB, SW = sw.shape
-    # Whole-tile (1024-word) DMA alignment (probe_dma_align3 on this
-    # chip); bzip2 slices are not pow2, so pad the per-block stride.
-    if SW % 1024:
-        sw = jnp.concatenate(
-            [sw, jnp.zeros((NB, 1024 - SW % 1024), sw.dtype)], axis=1)
-        SW = sw.shape[1]
-    # SMEM bounds the interleave factor (ADVICE r4): each chain holds a
-    # WINW stream window + the full fused table+selector row. The 920 KiB
-    # budget is the round-4 probe_extract capacity-ladder result.
-    TROW = -(-(6 * TAB_STRIDE + SEL_CAP) // 1024) * 1024  # tile-pad
-    per_chain = min(STREAM_WIN, SW) + TROW + 1
-    NBLK = max(1, min(NBLK, (920 * 1024 // 4) // per_chain))
-    NBp = -(-NB // NBLK) * NBLK
-    if NBp != NB:
-        pad = NBp - NB
-
-        def padz(x):
-            return jnp.concatenate(
-                [x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
-
-        sw, tab, selectors, mtf_init = map(
-            padz, (sw, tab, selectors, mtf_init))
-        zp = jnp.zeros((pad,), jnp.int32)
-        # Padding rows: n_used=254 keeps eob=255 unreachable; the walk
-        # ends immediately via nsel=0 -> bad -> done (err ignored below).
-        n_used = jnp.concatenate([n_used, zp + 254])
-        nsel = jnp.concatenate([nsel, zp])
-        sym_local = jnp.concatenate([sym_local, zp])
-
     recs, meta = pl.pallas_call(
-        functools.partial(_walk_kernel, S=S, SW=SW, NBLK=NBLK, TROW=TROW),
-        grid=(NBp // NBLK,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3 + [
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((NBLK, 2, 128), lambda b: (b, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((NBLK, S // 128, 128), lambda b: (b, 0, 0)),
-            pl.BlockSpec((NBLK, 1, 128), lambda b: (b, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((NBp, S // 128, 128), jnp.int32),
-            jax.ShapeDtypeStruct((NBp, 1, 128), jnp.int32),
-        ],
-        # Raise the 16 MiB default scoped-VMEM cap (v5e: 128 MiB
-        # physical) — the NBLK=2 working set sits right at the default
-        # and higher interleave factors need the headroom.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-        scratch_shapes=[
-            pltpu.SMEM((NBLK * min(STREAM_WIN, SW),), jnp.int32),
-            pltpu.SMEM((NBLK * TROW,), jnp.int32),
-            pltpu.SMEM((NBLK,), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
+        functools.partial(_walk_kernel, S=S, SW=SW),
+        grid=(NB,),
+        out_shape=[jax.ShapeDtypeStruct((NB * S,), jnp.int32),
+                   jax.ShapeDtypeStruct((NB * 4,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(n_used, nsel, sym_local,
-      sw.reshape(-1),
-      jnp.concatenate(
-          [tab, selectors,
-           jnp.zeros((NBp, TROW - 6 * TAB_STRIDE - SEL_CAP), tab.dtype)],
-          axis=1).reshape(-1),
-      mtf_init.reshape(NBp, 2, 128))
-    return recs.reshape(NBp, S)[:NB], meta.reshape(NBp, 128)[:NB]
+        name="bzip2_symbol_walk",
+    )(n_used, nsel, sym_local, sw.reshape(-1), tab.reshape(-1),
+      selectors.reshape(-1), mtf_init.reshape(-1))
+    return recs.reshape(NB, S), meta.reshape(NB, 4)
 
 
-@functools.partial(jax.jit, static_argnames=("S", "N", "interpret"))
+@functools.partial(jax.jit, static_argnames=("S", "N", "walk"))
 def _decode_jit(n_used, nsel, sym_local, orig, sw, tab, selectors,
-                mtf_init, *, S: int, N: int, interpret: bool):
+                mtf_init, *, S: int, N: int, walk: str):
     NB = sw.shape[0]
     recs, meta = _walk_call(n_used, nsel, sym_local, sw, tab,
-                            selectors, mtf_init, S=S, interpret=interpret,
-                            NBLK=_nblk_for(N))
+                            selectors, mtf_init, S=S,
+                            interpret=(walk == "interpret"))
     nrec = meta[:, 0]
     err = meta[:, 1]
     endbits = meta[:, 2]
@@ -444,6 +321,5 @@ def _decode_jit(n_used, nsel, sym_local, orig, sw, tab, selectors,
     lastcol = (jax.lax.cummax(D.reshape(NB, N), axis=1) & 511) - 1
     lastcol = jnp.clip(lastcol, 0, 255)
 
-    plain, ovf = ibwt_body(lastcol, lens_b, orig, N=N,
-                           interpret=interpret)
-    return plain, lens_b, err | (ovf << 7), endbits
+    plain, bad = ibwt_body(lastcol, lens_b, orig, N=N)
+    return plain, lens_b, err | (bad << 7), endbits

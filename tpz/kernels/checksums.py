@@ -1,13 +1,13 @@
 """Checksum kernels: CRC-32 (gzip reflected + bzip2 MSB variants), Adler-32.
 
 Parity: reference crate src/crc32.rs (table-driven, both variants) and
-src/adler32.rs ([MED], SURVEY.md §2.1). TPU-native design instead of a
+src/adler32.rs ([MED], SURVEY.md §2.1). Data-parallel design instead of a
 byte-serial table loop:
 
 CRC-32 is linear over GF(2): processing one 32-bit word is
 ``state' = M32 . (state ^ word)`` where ``M32`` is the 32x32 GF(2) matrix
 that advances the register by 32 zero bits. The matrix-vector product is 32
-lane-wide select+XOR VPU ops (no gathers). We split the input into L
+lane-wide select+XOR vector ops (no gathers). We split the input into L
 contiguous chunks (front-padded with zeros, which is a no-op for a zero-
 initialised register), compute chunk CRCs in parallel lanes with a
 ``fori_loop`` over words, and combine the L partials on the host with the

@@ -7,9 +7,7 @@ cpp/huffman.cc PackageMergeLengths/CanonicalCodes, differential-tested in
 tests/test_plan_device.py).
 
 With this, stage1 -> plan -> stage2 fuse into ONE jit program: no device->
-host histogram fetch, no host planning, no program swap between stages —
-the round-1 profile charged ~640 ms + a ~2.6 s relay program-swap to that
-boundary (BASELINE.md stage profile).
+host histogram fetch, no host planning, no program swap between stages.
 
 Formulation notes:
 

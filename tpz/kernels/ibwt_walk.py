@@ -1,298 +1,92 @@
-"""Inverse BWT as a Pallas segment walk (round 3; VERDICT r2 next #3).
+"""Inverse BWT on device by list ranking.
 
-The round-2 iBWT ran pointer doubling in XLA: ~log2(n) rounds of two
-whole-array gathers at this chip's ~0.14 G elem/s gather floor (~5 s per
-16 MiB => 0.25-0.40 MB/s end-to-end). The serial formulation is a linked
--list traversal — exactly what a Mosaic scalar walk with interleaved
-chains does at the ~20-30 ns/dependent-access floor instead.
+tvec (the LF-mapping permutation, one stable sort of the last column) is
+ONE cycle over the n live nodes of a block. Walking it from tvec[orig]
+emits the plaintext in forward order: node_0 = tvec[orig], node_{k+1} =
+tvec[node_k], out[k] = last[node_k]. Wyllie pointer doubling ranks every
+node in ceil(log2(N + 1)) rounds of two gathers over the whole batch, and
+one scatter places each byte at its rank. A PERIODIC block, whose LF map
+splits into several cycles, leaves nodes off the main cycle and is
+reported bad (the host decoder handles it).
 
-Parallel decomposition (list ranking by deterministic splitters):
-  - tvec is the LF-mapping permutation: ONE cycle over the n live nodes.
-    Walking it from tvec[orig] emits the plaintext in forward order (the
-    round-2 rank/distance algebra inverted: rank = n-1-d and every step
-    along tvec decrements d, so the node at distance n-1 — tvec[orig] —
-    opens the output and orig closes it).
-  - Mark every node j with (j & (SEG-1)) == 0, plus the global start
-    node, as a *splitter*. Segments between consecutive splitter visits
-    partition the cycle; expected length SEG, and every chain
-    terminates (the cycle visits each node exactly once).
-  - Chain i starts at node i*SEG (the start chain at tvec[orig]) and is
-    walked by slot (i % 8) of an 8-slot interleaved kernel body; a slot
-    walks its chains back-to-back into one contiguous VMEM byte stream.
-    Slot work = a sum of ~K/8 segment lengths, which concentrates — no
-    work stealing needed (~1.2x imbalance for K ~ 512).
-  - Each slot appends one record per finished chain:
-    (succ_chain << 20) | seg_len, succ derived from the terminating
-    splitter node. Chain ids per slot are implicit (c, c+8, c+16, ...,
-    including the start chain K when K % 8 == c).
-  - XLA stitches: per-slot record prefix sums give slot-local offsets,
-    a live-count-bounded scan over the successor graph gives global
-    segment offsets, a boundary-delta scatter + per-slot cumsum expands
-    them per byte, and ONE placement sort (key = global position)
-    assembles the plaintext. No gather ever touches an n-sized index
-    set.
-
-Everything (tvec sort, Pallas walk, stitch, placement) compiles as one
-device program per batch shape.
+A Pallas-Triton splitter-chain walk (one program per ~N/512-node chain,
+two passes) was measured against this on the H100 and did not beat it
+end to end; see PERF.md.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-INF = np.int32(2**31 - 1)
-NSLOT = 8
+from tpz import device
 
 
-def _seg_for(N: int) -> int:
-    """Splitter stride: ~512 chains per block, at least 256 bytes."""
-    s = max(256, N // 512)
-    return 1 << (s - 1).bit_length()
-
-
-def _walk_kernel(n_ref, sg_ref, w_ref, out_ref, rec_ref, ovf_ref, *,
-                 SEG: int, CAP: int):
-    """One grid step = one block; 8 interleaved slot chains.
-
-    w_ref [1, rw, 128] packed (tvec << 8 | byte); out_ref [NSLOT,
-    CAP/128, 128] slot byte streams; rec_ref [NSLOT, 1, 128] records;
-    ovf_ref [1, 1, 128] overflow flag (slot stream exceeded CAP)."""
-    from jax.experimental import pallas as pl
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    pid = pl.program_id(0)
-    n = n_ref[pid]
-    start_g = sg_ref[pid]
-    m = int(np.log2(SEG))
-    K = jax.lax.shift_right_logical(n + SEG - 1, m)  # regular chains
-    sg_reg = (start_g & (SEG - 1)) == 0
-    start_id = jnp.where(sg_reg, jax.lax.shift_right_logical(start_g, m),
-                         K)
-    last_id = jnp.where(sg_reg, K - 1, K)            # highest live chain
-    zero = jnp.int32(0)
-
-    rec_ref[...] = jnp.zeros_like(rec_ref)
-
-    RW = w_ref.shape[1]
-
-    def rd(pos):
-        # Clamp: corrupt inputs can momentarily produce a pointer into
-        # pad space before the coverage check rejects the block.
-        row = w_ref[0, pl.ds(jnp.minimum(pos >> 7, RW - 1), 1), :]
-        return jnp.sum(jnp.where(lane == (pos & 127), row, 0))
-
-    def chain_start(cid):
-        return jnp.where(cid == K, start_g,
-                         jax.lax.shift_left(cid, m))
-
-    # Slot state: (chain, cur, pos, cnt, ri, orow, rrow, ovf)
-    def init_slot(c):
-        cid = jnp.int32(c)
-        alive = cid <= last_id
-        return (cid, jnp.where(alive, chain_start(cid), zero), zero,
-                zero, zero, jnp.zeros((1, 128), jnp.int32),
-                jnp.zeros((1, 128), jnp.int32), zero)
-
-    def step_slot(c, st):
-        chain, cur, pos, cnt, ri, orow, rrow, ovf = st
-        act = (chain <= last_id) & (pos < CAP)
-        w = rd(jnp.where(act, cur, zero))
-        byte = w & 255
-        nxt = jax.lax.shift_right_logical(w, 8)
-        # Emit byte at slot-local pos (row-accumulate store).
-        r1 = pos >> 7
-        changed = act & ((pos & 127) == 0) & (pos > 0)
-        orow_n = jnp.where(changed, jnp.zeros_like(orow), orow)
-        orow_n = jnp.where(act & (lane == (pos & 127)), byte, orow_n)
-        out_ref[c, pl.ds(r1, 1), :] = orow_n
-        # Segment done when the NEXT node is a splitter.
-        done = act & (((nxt & (SEG - 1)) == 0) | (nxt == start_g))
-        succ = jnp.where(nxt == start_g, start_id,
-                         jax.lax.shift_right_logical(nxt, m))
-        rec = jax.lax.shift_left(succ, 20) | (cnt + 1)
-        rrow_n = jnp.where(done & (lane == (ri & 127)), rec, rrow)
-        rec_ref[c, pl.ds(zero, 1), :] = rrow_n
-        ovf_n = ovf | jnp.where((chain <= last_id) & (pos >= CAP), 1, 0)
-        chain_n = jnp.where(done, chain + NSLOT, chain)
-        cur_n = jnp.where(done, chain_start(chain_n), nxt)
-        return (chain_n, jnp.where(act, cur_n, cur),
-                jnp.where(act, pos + 1, pos),
-                jnp.where(done, zero, jnp.where(act, cnt + 1, cnt)),
-                jnp.where(done, ri + 1, ri), orow_n, rrow_n, ovf_n)
-
-    def cond(states):
-        alive = (states[0][0] <= last_id) & (states[0][2] < CAP)
-        for c in range(1, NSLOT):
-            alive = alive | ((states[c][0] <= last_id)
-                             & (states[c][2] < CAP))
-        return alive
-
-    def body(states):
-        return tuple(step_slot(c, states[c]) for c in range(NSLOT))
-
-    states = jax.lax.while_loop(
-        cond, body, tuple(init_slot(c) for c in range(NSLOT)))
-    ov = states[0][7]
-    for c in range(1, NSLOT):
-        ov = ov | states[c][7]
-    ovf_ref[0, pl.ds(0, 1), :] = jnp.full((1, 128), ov, jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("N", "interpret"))
-def _ibwt_fused(last, length, orig, *, N: int, interpret: bool = False):
-    return ibwt_body(last, length, orig, N=N, interpret=interpret)
-
-
-def ibwt_body(last, length, orig, *, N: int, interpret: bool = False):
-    """last [NB, N] int32 (0-padded), length [NB], orig [NB] ->
-    (out [NB, N] uint8 plaintext rows, ovf [NB] int32). Traceable body —
-    the all-device bzip2 decode fuses it after its symbol walk."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+def _lf_map(last, length, orig, N: int):
+    """(tvec [NB, N], start node [NB], live mask): the stable sort of the
+    last column gives the LF map; dead columns sort past the live ones."""
     NB = last.shape[0]
-    SEG = _seg_for(N)
-    m = int(np.log2(SEG))
-    KMAX = N // SEG + 1
-    RCAP = -(-(KMAX + NSLOT) // NSLOT)
-    assert RCAP <= 128, "one record row per slot"
-    CAP = (N // NSLOT + max(2 * SEG, N // 16) + 127) // 128 * 128
-    rw = max(1, N // 128)
     idx = jax.lax.broadcasted_iota(jnp.int32, (NB, N), 1)
     live = idx < length[:, None]
-
     li = last.astype(jnp.int32)
-    key = jnp.where(live, (li << 21) | idx, INF)
+    key = jnp.where(live, (li << 21) | idx, jnp.int32(2**31 - 1))
     tvec = jax.lax.sort(key, dimension=1) & ((1 << 21) - 1)
-    start_g = jnp.take_along_axis(
+    start = jnp.take_along_axis(
         tvec, jnp.clip(orig[:, None], 0, N - 1), axis=1)[:, 0]
-    w = jnp.where(live, (tvec << 8) | li, 0)
+    return tvec, start, live
 
-    out, recs, ovf = pl.pallas_call(
-        functools.partial(_walk_kernel, SEG=SEG, CAP=CAP),
-        grid=(NB,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rw, 128), lambda b: (b, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((NSLOT, CAP // 128, 128), lambda b: (b, 0, 0)),
-            pl.BlockSpec((NSLOT, 1, 128), lambda b: (b, 0, 0)),
-            pl.BlockSpec((1, 1, 128), lambda b: (b, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((NB * NSLOT, CAP // 128, 128),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct((NB * NSLOT, 1, 128), jnp.int32),
-            jax.ShapeDtypeStruct((NB, 1, 128), jnp.int32),
-        ],
-        # The default 16 MiB scoped-VMEM budget fails at NB >= ~18
-        # (Mosaic deepens the input pipeline on longer grids); v5e has
-        # 128 MiB of physical VMEM, so raise the compiler cap instead
-        # of shrinking CAP slack (which would cost host fallbacks).
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-        interpret=interpret,
-    )(length, start_g, w.reshape(NB, rw, 128))
 
-    # ---- stitch (all shapes [NB, NSLOT, ...] or chain-major [NB, Q]) --
-    recs = recs.reshape(NB, NSLOT, 128)[:, :, :RCAP]
-    seg_len = recs & ((1 << 20) - 1)
-    succ = jax.lax.shift_right_logical(recs, 20)
-    loc_off = jnp.cumsum(seg_len, axis=2) - seg_len   # slot-local offsets
-    used_slot = loc_off[:, :, -1] + seg_len[:, :, -1]  # [NB, NSLOT]
+def _rank_doubling(nxt, weight, rounds: int):
+    """Wyllie list ranking: dist[i] = sum of weight from i to the end of
+    its list. nxt [NB, N+1] with column N the NIL sink (weight 0,
+    nxt == N); every list ends by pointing at NIL."""
+    def rnd(_, c):
+        d, p = c
+        return (d + jnp.take_along_axis(d, p, axis=1),
+                jnp.take_along_axis(p, p, axis=1))
 
-    K = jax.lax.shift_right_logical(length + SEG - 1, m)
-    sg_reg = (start_g & (SEG - 1)) == 0
-    start_id = jnp.where(sg_reg, jax.lax.shift_right_logical(start_g, m),
-                         K)
-    n_live = K + jnp.where(sg_reg, 0, 1)
+    d, _ = jax.lax.fori_loop(0, rounds, rnd, (weight, nxt))
+    return d
 
-    def by_chain(a):               # [NB, NSLOT, RCAP] -> [NB, Q], q=c+8r
-        return a.transpose(0, 2, 1).reshape(NB, RCAP * NSLOT)
 
-    q_len, q_succ, q_loc = map(by_chain, (seg_len, succ, loc_off))
-    Q = RCAP * NSLOT
-    nbidx = jnp.arange(NB)
-
-    def stitch(carry, _):
-        cur, acc, goff, i = carry
-        on = i < n_live
-        ln = jnp.take_along_axis(q_len, cur[:, None], axis=1)[:, 0]
-        goff = goff.at[nbidx, jnp.where(on, cur, Q - 1)].max(
-            jnp.where(on, acc, jnp.int32(-1)))
-        nxt = jnp.take_along_axis(q_succ, cur[:, None], axis=1)[:, 0]
-        return (jnp.where(on, nxt, cur), acc + jnp.where(on, ln, 0),
-                goff, i + 1), None
-
-    goff0 = jnp.full((NB, Q), -1, jnp.int32)
-    (_, total, goff, _), _ = jax.lax.scan(
-        stitch, (start_id, jnp.zeros((NB,), jnp.int32), goff0,
-                 jnp.zeros((NB,), jnp.int32)), None, length=Q)
-    # Coverage check: a healthy stitch walks exactly n bytes over n_live
-    # segments. It fails (a) on slot-stream overflow (skewed segment
-    # lengths) and (b) on PERIODIC blocks, whose LF map decomposes into
-    # p > 1 disjoint cycles — no splitter decomposition covers those, and
-    # the round-2 pointer-doubling path silently mis-ranks them too, so
-    # callers must route bad blocks to the host decoder.
+def ibwt_body(last, length, orig, *, N: int):
+    """last [NB, N] int32 (0-padded), length [NB], orig [NB] ->
+    (out [NB, N] uint8 plaintext rows, bad [NB] int32): every node ranked
+    by pointer doubling, then one scatter. Traceable — the all-device
+    bzip2 decode fuses it after its symbol walk."""
+    NB = last.shape[0]
+    tvec, start, live = _lf_map(last, length, orig, N)
+    NIL = N
+    nxt = jnp.where(live & (tvec != start[:, None]), tvec, NIL)
+    nxt = jnp.concatenate([nxt, jnp.full((NB, 1), NIL, jnp.int32)], axis=1)
+    weight = jnp.concatenate([live.astype(jnp.int32),
+                              jnp.zeros((NB, 1), jnp.int32)], axis=1)
+    dist = _rank_doubling(nxt, weight, (N + 1).bit_length())[:, :N]
+    total = jnp.take_along_axis(dist, start[:, None], axis=1)[:, 0]
     bad = (total != length).astype(jnp.int32)
+    pos = jnp.where(live, length[:, None] - dist, N)
+    rows = jax.lax.broadcasted_iota(jnp.int32, (NB, N), 0)
+    out = jnp.zeros((NB, N + 1), jnp.uint8).at[rows, jnp.clip(pos, 0, N)].set(
+        last.astype(jnp.uint8), mode="drop")
+    return out[:, :N], bad
 
-    # Per-byte placement key = goff(chain) + (j - loc(chain)), expanded
-    # as boundary deltas + per-slot cumsum.
-    A = goff - q_loc                                   # [NB, Q]
-    dead = q_len == 0
-    A_prev = jnp.concatenate(
-        [jnp.zeros((NB, NSLOT), jnp.int32), A[:, :-NSLOT]], axis=1)
-    prev_dead = jnp.concatenate(
-        [jnp.ones((NB, NSLOT), bool), dead[:, :-NSLOT]], axis=1)
-    delta = jnp.where(prev_dead, A, A - A_prev)
-    slot_of = jnp.arange(Q, dtype=jnp.int32)[None, :] & (NSLOT - 1)
-    flat_pos = (nbidx[:, None].astype(jnp.int32) * (NSLOT * CAP)
-                + slot_of * CAP + q_loc)
-    D = jnp.zeros((NB * NSLOT * CAP,), jnp.int32)
-    D = D.at[jnp.where(dead.reshape(-1), NB * NSLOT * CAP,
-                       flat_pos.reshape(-1))].add(
-        jnp.where(dead, 0, delta).reshape(-1), mode="drop")
-    D = D.reshape(NB, NSLOT, CAP)
-    Akey = jnp.cumsum(D, axis=2)
-    j_in = jax.lax.broadcasted_iota(jnp.int32, (NB, NSLOT, CAP), 2)
-    key2 = jnp.where(j_in < used_slot[:, :, None], Akey + j_in, INF)
-    bytes_flat = out.reshape(NB, NSLOT * CAP)
-    _, placed = jax.lax.sort(
-        (key2.reshape(NB, NSLOT * CAP), bytes_flat), dimension=1,
-        num_keys=1)
-    return (placed[:, :N].astype(jnp.uint8),
-            ovf.reshape(NB, 128)[:, 0] | bad)
+
+_ibwt_jit = jax.jit(ibwt_body, static_argnames=("N",))
 
 
 def ibwt_blocks_fast(last: np.ndarray, lengths: np.ndarray,
-                     origs: np.ndarray,
-                     interpret: bool | None = None) -> np.ndarray | None:
-    """[NB, N] last columns -> plaintext rows (replaces the round-2
-    pointer-doubling iBWT, deleted in round 3).
-
-    Returns None when any block's walk could not cover it (slot-stream
-    overflow from pathologically skewed segments, or a periodic block
-    whose LF map is multi-cyclic) — the caller must use the host
-    decoder, which handles both."""
-    from tpz.kernels.device_quirks import fetch_many
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+                     origs: np.ndarray) -> np.ndarray | None:
+    """[NB, N] last columns -> plaintext rows, or None when a block's LF
+    map is not one cycle (a periodic block, or a corrupt one) — the
+    caller then uses the host decoder, which handles both."""
     NB, N0 = last.shape
-    N = max(256, 1 << (N0 - 1).bit_length()) if N0 & (N0 - 1) else \
-        max(256, N0)
+    N = max(256, 1 << (N0 - 1).bit_length())
     lastp = last if N == N0 else np.pad(last, ((0, 0), (0, N - N0)))
-    out, ovf = _ibwt_fused(
+    out, bad = device.fetch_many(*_ibwt_jit(
         jnp.asarray(lastp.astype(np.int32)),
         jnp.asarray(lengths.astype(np.int32)),
-        jnp.asarray(origs.astype(np.int32)), N=N, interpret=interpret)
-    out_np, ovf_np = map(np.asarray, fetch_many(out, ovf))
-    if int(ovf_np.sum()) != 0:
+        jnp.asarray(origs.astype(np.int32)), N=N))
+    if int(bad.sum()) != 0:
         return None
-    return out_np[:, :N0]
+    return out[:, :N0]

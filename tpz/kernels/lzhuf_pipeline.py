@@ -1,4 +1,4 @@
-"""TPU LZHUF encode pipeline (SURVEY.md §2.1 LZHUF row: "reuses LZSS +
+"""Device LZHUF encode pipeline (SURVEY.md §2.1 LZHUF row: "reuses LZSS +
 Huffman + bitpack kernels with LHA parameters, MSB-first direction").
 
 Same architecture as deflate_pipeline: device match-find/parse/histograms
@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tpz import device
 from tpz.constants import LZHUF_METHODS
 from tpz.kernels import bitpack
-from tpz.kernels.device_quirks import fetch
 from tpz.kernels.matchfinder import find_matches
 from tpz.kernels.parse import greedy_parse
 
@@ -26,12 +26,6 @@ BLOCK = 32768
 FWD = 512
 MAX_MATCH = 256
 NC = 510
-
-
-def usable(explicit: bool = False) -> bool:
-    from tpz.kernels.deflate_pipeline import usable as _u
-
-    return _u(explicit)
 
 
 def _shift_rows(base, k):
@@ -67,31 +61,13 @@ def _bitlen16(p):
     return c
 
 
-@functools.partial(jax.jit, static_argnames=("k", "window", "use_pallas", "np_"))
+@functools.partial(jax.jit, static_argnames=("k", "window", "np_"))
 def _stage1(blocks, span_off, span_len, block_len, k: int, window: int,
-            use_pallas: bool, np_: int):
-    NB = blocks.shape[0]
-    if use_pallas:
-        from tpz.kernels.matchfinder import screen_candidates
-        from tpz.kernels.parse import parse_extend_pallas
-
-        bj, bs, words, _ = screen_candidates(
-            blocks, span_off, span_len, k, window, BLOCK, MAX_MATCH)
-        words_i32 = jax.lax.bitcast_convert_type(words, jnp.int32)
-        reach, mlen = parse_extend_pallas(
-            bs[:, window:window + BLOCK], bj[:, window:window + BLOCK],
-            words_i32, block_len[:, None], window, max_match=MAX_MATCH)
-        pos = jax.lax.broadcasted_iota(jnp.int32, (NB, BLOCK), 1)
-        is_token = (reach > 0) & (pos < block_len[:, None])
-        mdist = jnp.where(mlen > 0,
-                          pos + window - bj[:, window:window + BLOCK], 0)
-        ntokens = jnp.sum(is_token.astype(jnp.int32), axis=1)
-    else:
-        mlen, mdist = find_matches(blocks, span_off, span_len, k=k,
-                                   window=window, block=BLOCK,
-                                   max_match=MAX_MATCH)
-        is_token, token_idx, ntokens = greedy_parse(mlen, mdist, block_len,
-                                                    use_pallas=False)
+            np_: int):
+    mlen, mdist = find_matches(blocks, span_off, span_len, k=k,
+                               window=window, block=BLOCK,
+                               max_match=MAX_MATCH)
+    is_token, _, ntokens = greedy_parse(mlen, mdist, block_len)
     data_block = blocks[:, window:window + BLOCK]
     is_match = is_token & (mlen > 0)
     csym = jnp.where(is_match, 256 + mlen - 3, data_block)
@@ -143,9 +119,8 @@ def compress_many(datas, method: str = "lh5",
                   max_chain: int = 16) -> list[bytes]:
     """Batched LZHUF encode (VERDICT r2 next #5): ALL buffers' blocks
     share ONE stage-1 and ONE stage-2 device invocation — exactly the
-    DEFLATE/bzip2 batching shape, amortizing the per-dispatch relay
-    cost that made per-buffer lzhuf encode pay the ~0.6 s floor twice
-    per buffer. Host planning (cpp LzhufPlan) stays per buffer; each
+    DEFLATE/bzip2 batching shape, amortizing the per-dispatch cost.
+    Host planning (cpp LzhufPlan) stays per buffer; each
     buffer's bit stream packs at a word-aligned region of one shared
     output array. Byte-identical to the per-buffer path."""
     from tpz import oracle
@@ -186,15 +161,14 @@ def compress_many(datas, method: str = "lh5",
             n - np.arange(nb) * BLOCK, BLOCK)
         r0 += nb
 
-    use_pallas = jax.default_backend() == "tpu"
     blocks = jnp.asarray(blocks_np.astype(np.int32))
     mlen, mdist, is_token, c_hist, p_hist, ntokens = _stage1(
         blocks, jnp.asarray(span_off), jnp.asarray(span_len),
-        jnp.asarray(block_len), max_chain, window, use_pallas, np_)
+        jnp.asarray(block_len), max_chain, window, np_)
 
-    c_hist_np = fetch(c_hist).astype(np.uint32)
-    p_hist_np = fetch(p_hist).astype(np.uint32)
-    ntokens_np = fetch(ntokens).astype(np.uint32)
+    c_hist_np, p_hist_np, ntokens_np = (
+        a.astype(np.uint32) for a in device.fetch_many(c_hist, p_hist,
+                                                        ntokens))
 
     # Per-buffer host plans; each buffer's stream at a word-aligned
     # region of the shared output.
@@ -215,8 +189,7 @@ def compress_many(datas, method: str = "lh5",
     # Round the shared output up to a coarse bucket (128 KiB of words):
     # stage 2 must compile once per batch SHAPE, not once per batch
     # CONTENT — an exact word count changes with every input's bit total,
-    # which made each "warm" call pay a fresh remote compile (the 0.13
-    # MB/s lzhuf row in BENCH r3 vs 1.35 in r2). Per-buffer regions are
+    # so each "warm" call would compile afresh. Per-buffer regions are
     # sliced out of the shared body below, so pad words are inert.
     total_words = max(1, -(-pos_bits // 32))
     total_words = -(-total_words // (1 << 15)) << 15
@@ -232,7 +205,7 @@ def compress_many(datas, method: str = "lh5",
         jnp.asarray(np.concatenate(
             [p["p_code"] for p in plans]).astype(np.int32)),
         jnp.asarray(body_off.astype(np.int32)), total_words, window)
-    body = fetch(words).astype(">u4").view(np.uint8)  # MSB-first bytes
+    body = device.fetch(words).astype(">u4").view(np.uint8)  # MSB-first
 
     for (i, nb, n), plan, rb in zip(metas, plans, region_bits):
         total_bytes = (plan["total_bits"] + 7) // 8

@@ -3,14 +3,14 @@
 The lzhuf analogue of the DEFLATE segment route: the host LzhufIndex
 (cpp/lzhuf.cc) walks the token stream once — no output materialization —
 cutting 64 KiB-output, token-aligned segments (also at every block's
-table change) with split-match carries; this Mosaic walk then decodes
-every segment's tokens in parallel, writing (kind, dist-1, len) markers
+table change) with split-match carries; a Pallas-Triton walk (one
+program per segment) then decodes every segment's tokens in parallel, writing (kind, dist-1, len) markers
 at output positions, and the shared dense resolution
-(inflate_pipeline._resolve_fn with dist_bias=1) expands matches.
+(inflate_pipeline._resolve_doubling with dist_bias=1) expands matches.
 
 MSB-first bit order (LHA), c alphabet 510 (literals + lengths 3..256),
 p alphabet <= 20 giving the distance's bit count. Tables use the same
-15-bit level-1 + 2-bit level-2 split as the bzip2 walk; constant-code
+12-bit level-1 + 5-bit level-2 split as the bzip2 walk; constant-code
 blocks (single-symbol tables) become tables whose entries consume 0
 bits — the walk's natural semantics for them.
 """
@@ -24,16 +24,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpz.kernels.inflate_pipeline import (BLOCK, _KIND_LIT, _KIND_MATCH,
-                                          _materialize_fn, _resolve_fn)
+                                          _materialize_fn, _resolve_doubling)
 
 NC = 510
 
-# Round-4 table layout: 12-bit level-1 (4096 entries, 16 KiB) + 5-bit
-# level-2 chunks (32 entries per escaped prefix) replace the flat 15-bit
-# level-1 (128 KiB). Small enough that all four tables (c/p x L1/L2)
-# live in SMEM per chain — every decode-table read becomes an 8.8 ns
-# scalar load instead of a 28 ns VMEM row-load+lane-select — and the
-# per-segment h2d replication drops 8x. Codes run to 17 bits (LHA cap);
+# Table layout: 12-bit level-1 (4096 entries, 16 KiB) + 5-bit level-2
+# chunks (32 entries per escaped prefix): all four tables (c/p x L1/L2)
+# of a segment take 64 KiB, small enough to stay cache-resident during
+# its walk and to replicate per segment. Codes run to 17 bits (LHA cap);
 # a stream whose long codes overflow L2_CAP declines to the host
 # decoder (build_tables returns None).
 L1_BITS = 12
@@ -87,309 +85,168 @@ def build_tables(lens: np.ndarray, consts: np.ndarray, nsym: int):
     return l1, l2
 
 
-STREAM_WIN = 4096  # words; sliding SMEM window over the stream slice
-
-
 def _walk(stream_words, body_bit_local, out_len, start_pos, tab,
-          interpret=False, nblk: int = 8):
+          walk: str = "reference"):
     """MSB token walk -> markers [NB, BLOCK] (dist stored as dist-1).
 
     tab: [NB, TW] fused decode tables per segment, TW = 2*(L1W+L2_CAP):
-    [c L1 | c L2 | p L1 | p L2]. Round 4: tables AND stream live in SMEM
-    (tables DMA'd whole per grid step, the stream as a sliding window —
-    bitpos is monotone), so all 7 dynamic reads per token are scalar
-    loads; no VMEM operand remains."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    [c L1 | c L2 | p L1 | p L2]. walk="triton" runs the Pallas-Triton
+    kernel (one program per segment), "interpret" the same kernel in the
+    Pallas interpreter, "reference" the lane-parallel XLA twin; all
+    three write identical markers."""
+    args = (stream_words, body_bit_local, out_len, start_pos, tab)
+    if walk == "reference":
+        return _walk_vz(*args)
+    return _walk_triton(*args, interpret=(walk == "interpret"))
 
-    NB, SW = stream_words.shape
-    r_o = BLOCK // 128
-    TW = tab.shape[1]
-    import os as _os2
 
-    if _os2.environ.get("TPZ_LZHUF_WALK") == "vz":
-        # Round-5 lane-parallel XLA walk (segments in vector lanes):
-        # marker-identical, Mosaic-free fallback. Trace-time env read —
-        # A/B runs use separate processes.
-        return _walk_vz(stream_words, body_bit_local, out_len, start_pos,
-                        tab)
-    # Mosaic DMA rule measured on this chip (bench/probe_dma_align3/4,
-    # 2026-08-20): 1-D HBM slices must cover whole (8,128) tiles — offset
-    # and length multiples of 1024 words — into flat 1-D SMEM slices.
-    if SW % 1024:
-        stream_words = jnp.concatenate(
-            [stream_words,
-             jnp.zeros((NB, 1024 - SW % 1024), stream_words.dtype)], axis=1)
-        SW = stream_words.shape[1]
-    if TW % 1024:
-        tab = jnp.concatenate(
-            [tab, jnp.zeros((NB, 1024 - TW % 1024), tab.dtype)], axis=1)
-        TW = tab.shape[1]
-    SWIN = min(STREAM_WIN, SW)
+def _srl(x, s):
+    return jax.lax.shift_right_logical(x, s)
+
+
+def _bits_msb(w0, w1, w2, sh, off, n):
+    """MSB-first: n bits starting sh+off into the 96-bit window. Shift
+    amounts stay below 32 (the GPU leaves wider shifts undefined)."""
+    b = sh + off
+    wi = b >> 5
+    s2 = b & 31
+    lo = jnp.where(wi == 0, w0, jnp.where(wi == 1, w1, w2))
+    hi = jnp.where(wi == 0, w1, jnp.where(wi == 1, w2, 0))
+    v = jax.lax.shift_left(lo, s2) | jnp.where(
+        s2 > 0, _srl(hi, (32 - s2) & 31), 0)
+    return jnp.where(n > 0, _srl(v, (32 - n) & 31), 0)
+
+
+def _token(w0, w1, w2, sh, tab_at):
+    """Decode one LZHUF token from the window at bit sh; tab_at(off)
+    reads the segment's fused table. The host indexer already walked
+    these exact bits, so codes are valid (constant-code tables have
+    clen == 0). Returns (nbits, adv, mark)."""
     OC2 = L1W
     OP1 = L1W + L2_CAP
     OP2 = 2 * L1W + L2_CAP
-    NBp = -(-NB // nblk) * nblk
-    if NBp != NB:
-        pad = NBp - NB
+    zero = jnp.zeros_like(sh)
+    l1b = zero + L1_BITS
+    peekc = _bits_msb(w0, w1, w2, sh, zero, l1b)
+    e1 = tab_at(peekc)
+    esc = (e1 & 31) == 31
+    e2 = tab_at(OC2 + _srl(e1, 5) + _bits_msb(w0, w1, w2, sh, l1b, zero + 5))
+    e = jnp.where(esc, e2, e1)
+    clen = e & 31
+    csym = _srl(e, 5)
 
-        def padz(x):
-            return jnp.concatenate(
-                [x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
+    is_match = csym >= 256
+    mlen = jnp.clip(csym - 256 + 3, 3, 258)
+    pk = _bits_msb(w0, w1, w2, sh, clen, l1b)
+    pe1 = tab_at(OP1 + pk)
+    pesc = (pe1 & 31) == 31
+    pe2 = tab_at(OP2 + _srl(pe1, 5)
+                 + _bits_msb(w0, w1, w2, sh, clen + l1b, zero + 5))
+    pe = jnp.where(pesc, pe2, pe1)
+    plen_ = pe & 31
+    pc = _srl(pe, 5)
+    raw_n = jnp.maximum(pc - 1, 0)
+    raw = _bits_msb(w0, w1, w2, sh, clen + plen_, raw_n)
+    # dist = pval + 1; markers store pval (= dist - 1).
+    pval = jnp.where(pc > 1,
+                     jax.lax.shift_left(zero + 1, jnp.clip(pc - 1, 0, 30))
+                     | raw, pc)
+    nbits = jnp.where(is_match, clen + plen_ + raw_n, clen)
+    adv = jnp.where(is_match, mlen, 1)
+    mark = jnp.where(is_match,
+                     (_KIND_MATCH << 28) | jax.lax.shift_left(pval, 9) | mlen,
+                     (_KIND_LIT << 28) | csym)
+    return nbits, adv, mark
 
-        stream_words, tab = map(padz, (stream_words, tab))
-        zp = jnp.zeros((pad,), jnp.int32)
-        body_bit_local = jnp.concatenate([body_bit_local, zp])
-        out_len = jnp.concatenate([out_len, zp])
-        start_pos = jnp.concatenate([start_pos, zp])
 
-    def kernel(bb_ref, ol_ref, sp_ref, s_hbm, t_hbm, out_ref, s_win,
-               t_ref, sbase_ref, dma_sem):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_ref[...] = jnp.zeros_like(out_ref)
+def _walk_triton(stream_words, body_bit_local, out_len, start_pos, tab,
+                 interpret: bool = False):
+    """Pallas-Triton walk: one single-warp program per segment walks its
+    tokens in one launch, reading stream and tables straight from device
+    memory and storing each marker as a scalar into zeroed rows."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    NB, SW = stream_words.shape
+    TW = tab.shape[1]
+
+    def kernel(bb_ref, ol_ref, sp_ref, s_ref, t_ref, z_ref, out_ref):
+        del z_ref  # aliased to out_ref
         g = pl.program_id(0)
-        zero = jnp.int32(0)
-        one31 = jnp.int32(31)
-        # s_hbm / t_hbm arrive FLAT (1-D): whole-tile (1024-word) slices
-        # into flat 1-D SMEM slices — the only DMA form this chip's
-        # Mosaic accepts (probe_dma_align3/4, 2026-08-20).
-        for c in range(nblk):
-            cpt = pltpu.make_async_copy(
-                t_hbm.at[pl.ds((g * nblk + c) * TW, TW)],
-                t_ref.at[pl.ds(c * TW, TW)], dma_sem)
-            cpt.start()
-            cpt.wait()
-            cps = pltpu.make_async_copy(
-                s_hbm.at[pl.ds((g * nblk + c) * SW, SWIN)],
-                s_win.at[pl.ds(c * SWIN, SWIN)], dma_sem)
-            cps.start()
-            cps.wait()
-            sbase_ref[c] = 0
+        sbase = g * SW
+        tbase = g * TW
+        obase = g * BLOCK
+        outl = ol_ref[g]
 
-        outls = [ol_ref[g * nblk + c] for c in range(nblk)]
+        def body(st):
+            bitpos, out_pos = st
+            wc = jnp.minimum(bitpos >> 5, SW - 3)
+            w0 = s_ref[sbase + wc]
+            w1 = s_ref[sbase + wc + 1]
+            w2 = s_ref[sbase + wc + 2]
+            nbits, adv, mark = _token(w0, w1, w2, bitpos & 31,
+                                      lambda i: t_ref[tbase + i])
+            out_ref[obase + out_pos] = mark
+            return bitpos + nbits, out_pos + adv
 
-        def srl(x, s):
-            return jax.lax.shift_right_logical(x, s)
-
-        def step_chain(c, st):
-            bitpos, out_pos, ro, orow, ok = st
-            act = ok & (out_pos < outls[c])
-
-            w = bitpos >> 5
-            sh = bitpos & 31
-            wc = jnp.minimum(w, jnp.int32(SW - 3))
-            need = act & ((wc + 2 - sbase_ref[c]) >= jnp.int32(SWIN - 1))
-
-            @pl.when(need)
-            def _():
-                # Tile-aligned window base (1024 words); the mul form is
-                # what Mosaic's divisibility analysis can prove.
-                nb = jax.lax.shift_right_logical(
-                    jnp.minimum(wc, jnp.int32(SW - SWIN)), 10) * 1024
-                cpw = pltpu.make_async_copy(
-                    s_hbm.at[pl.ds((g * nblk + c) * SW + nb, SWIN)],
-                    s_win.at[pl.ds(c * SWIN, SWIN)], dma_sem)
-                cpw.start()
-                cpw.wait()
-                sbase_ref[c] = nb
-
-            woff = c * SWIN + jnp.clip(wc - sbase_ref[c], 0, SWIN - 3)
-            w0 = s_win[woff]
-            w1 = s_win[woff + 1]
-            w2 = s_win[woff + 2]
-
-            def bits_at(off, n):
-                # MSB: n bits starting sh+off into the 96-bit window.
-                b = sh + off
-                wi = b >> 5
-                s2 = b & 31
-                lo = jnp.where(wi == 0, w0, jnp.where(wi == 1, w1, w2))
-                hi = jnp.where(wi == 0, w1, jnp.where(wi == 1, w2, zero))
-                v = jax.lax.shift_left(lo, s2) | jnp.where(
-                    s2 > 0, srl(hi, (32 - s2) & one31), 0)
-                return jnp.where(n > 0, srl(v, (32 - n) & one31), 0)
-
-            peekc = bits_at(zero, jnp.int32(L1_BITS))
-            tb = c * TW
-            e1 = t_ref[tb + peekc]
-            esc = (e1 & 31) == 31
-            e2 = t_ref[tb + OC2 + srl(e1, 5)
-                       + bits_at(jnp.int32(L1_BITS), jnp.int32(5))]
-            e = jnp.where(esc, e2, e1)
-            clen = e & 31
-            csym = srl(e, 5)
-            # The host indexer already token-walked these exact bits, so
-            # invalid codes cannot occur here (const tables legitimately
-            # have clen == 0); adv >= 1 bounds the loop regardless.
-            okn = ok
-
-            is_match = csym >= 256
-            mlen = jnp.clip(csym - 256 + 3, 3, 258)
-            pk = bits_at(clen, jnp.int32(L1_BITS))
-            pe1 = t_ref[tb + OP1 + pk]
-            pesc = (pe1 & 31) == 31
-            pe2 = t_ref[tb + OP2 + srl(pe1, 5)
-                        + bits_at(clen + jnp.int32(L1_BITS), jnp.int32(5))]
-            pe = jnp.where(pesc, pe2, pe1)
-            plen_ = pe & 31
-            pc = srl(pe, 5)
-            raw_n = jnp.maximum(pc - 1, 0)
-            raw = bits_at(clen + plen_, raw_n)
-            pval = jnp.where(pc > 1,
-                             jax.lax.shift_left(jnp.int32(1), pc - 1)
-                             | raw, pc)
-            # dist = pval + 1; markers store pval (= dist - 1).
-            nbits = jnp.where(is_match, clen + plen_ + raw_n, clen)
-            adv = jnp.where(is_match, mlen, 1)
-            mark = jnp.where(is_match,
-                             (_KIND_MATCH << 28)
-                             | jax.lax.shift_left(pval, 9) | mlen,
-                             (_KIND_LIT << 28) | csym)
-
-            r1 = out_pos >> 7
-            changed = act & (r1 != ro)
-            orow_n = jnp.where(changed, jnp.zeros_like(orow), orow)
-            orow_n = jnp.where(act & (lane == (out_pos & 127)), mark,
-                               orow_n)
-            ro_n = jnp.where(changed, r1, ro)
-            out_ref[c, pl.ds(ro_n, 1), :] = orow_n
-            return (jnp.where(act, bitpos + nbits, bitpos),
-                    jnp.where(act, out_pos + adv, out_pos),
-                    ro_n, orow_n, jnp.where(act, okn, ok))
-
-        def cond(states):
-            alive = states[0][4] & (states[0][1] < outls[0])
-            for c in range(1, nblk):
-                alive = alive | (states[c][4] & (states[c][1] < outls[c]))
-            return alive
-
-        def body(states):
-            return tuple(step_chain(c, states[c]) for c in range(nblk))
-
-        init = tuple(
-            (bb_ref[g * nblk + c], sp_ref[g * nblk + c],
-             sp_ref[g * nblk + c] >> 7, jnp.zeros((1, 128), jnp.int32),
-             True)
-            for c in range(nblk))
-        jax.lax.while_loop(cond, body, init)
+        jax.lax.while_loop(lambda st: st[1] < outl, body,
+                           (bb_ref[g], sp_ref[g]))
 
     out = pl.pallas_call(
         kernel,
-        grid=(NBp // nblk,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3 + [
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((nblk, r_o, 128), lambda b: (b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((NBp, r_o, 128), jnp.int32),
-        scratch_shapes=[pltpu.SMEM((nblk * SWIN,), jnp.int32),
-                        pltpu.SMEM((nblk * TW,), jnp.int32),
-                        pltpu.SMEM((nblk,), jnp.int32),
-                        pltpu.SemaphoreType.DMA],
+        grid=(NB,),
+        out_shape=jax.ShapeDtypeStruct((NB * BLOCK,), jnp.int32),
+        input_output_aliases={5: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(body_bit_local, out_len, start_pos,
-      stream_words.reshape(-1), tab.reshape(-1))
-    return out.reshape(NBp, BLOCK)[:NB]
+        name="lzhuf_symbol_walk",
+    )(body_bit_local, out_len, start_pos, stream_words.reshape(-1),
+      tab.reshape(-1), jnp.zeros((NB * BLOCK,), jnp.int32))
+    return out.reshape(NB, BLOCK)
 
 
 def _walk_vz(stream_words, body_bit_local, out_len, start_pos, tab):
-    """Lane-parallel XLA twin of the Pallas MSB token walk: every
-    segment advances one token per loop trip in vector lanes (~7
-    dynamic gathers + 1 scatter per trip). Marker-identical (subprocess
-    test in tests/test_lzhuf_pipeline.py); env-gated TPZ_LZHUF_WALK=vz
-    pending the chip A/B."""
+    """Lane-parallel XLA twin of the Triton walk, and its reference:
+    every segment advances one token per loop trip in vector lanes
+    (~7 gathers + 1 scatter per trip)."""
     NB, SW = stream_words.shape
     TW = tab.shape[1]
-    OC2 = L1W
-    OP1 = L1W + L2_CAP
-    OP2 = 2 * L1W + L2_CAP
     s_flat = stream_words.reshape(-1)
     t_flat = tab.reshape(-1)
     seg = jnp.arange(NB, dtype=jnp.int32)
     s_base = seg * jnp.int32(SW)
     t_base = seg * jnp.int32(TW)
-    zero = jnp.zeros((NB,), jnp.int32)
-    one31 = jnp.int32(31)
-
-    def srl(x, s):
-        return jax.lax.shift_right_logical(x, s)
 
     def body(c):
-        bitpos, out_pos, ok, out = c
-        act = ok & (out_pos < out_len)
-        w = bitpos >> 5
-        sh = bitpos & 31
-        wc = jnp.minimum(w, jnp.int32(SW - 3))
+        bitpos, out_pos, out = c
+        act = out_pos < out_len
+        wc = jnp.minimum(bitpos >> 5, jnp.int32(SW - 3))
         w0 = s_flat[s_base + wc]
         w1 = s_flat[s_base + wc + 1]
         w2 = s_flat[s_base + wc + 2]
-
-        def bits_at(off, n):
-            # MSB: n bits starting sh+off into the 96-bit window.
-            b = sh + off
-            wi = b >> 5
-            s2 = b & 31
-            lo = jnp.where(wi == 0, w0, jnp.where(wi == 1, w1, w2))
-            hi = jnp.where(wi == 0, w1, jnp.where(wi == 1, w2, 0))
-            v = jax.lax.shift_left(lo, s2) | jnp.where(
-                s2 > 0, srl(hi, (32 - s2) & one31), 0)
-            return jnp.where(n > 0, srl(v, (32 - n) & one31), 0)
-
-        l1b = jnp.full_like(zero, L1_BITS)
-        peekc = bits_at(zero, l1b)
-        e1 = t_flat[t_base + peekc]
-        esc = (e1 & 31) == 31
-        e2v = t_flat[t_base + OC2 + srl(e1, 5)
-                     + bits_at(l1b, jnp.full_like(zero, 5))]
-        e = jnp.where(esc, e2v, e1)
-        clen = e & 31
-        csym = srl(e, 5)
-        okn = ok
-
-        is_match = csym >= 256
-        mlen = jnp.clip(csym - 256 + 3, 3, 258)
-        pk = bits_at(clen, l1b)
-        pe1 = t_flat[t_base + OP1 + pk]
-        pesc = (pe1 & 31) == 31
-        pe2 = t_flat[t_base + OP2 + srl(pe1, 5)
-                     + bits_at(clen + l1b, jnp.full_like(zero, 5))]
-        pe = jnp.where(pesc, pe2, pe1)
-        plen_ = pe & 31
-        pc = srl(pe, 5)
-        raw_n = jnp.maximum(pc - 1, 0)
-        raw = bits_at(clen + plen_, raw_n)
-        pval = jnp.where(pc > 1,
-                         jax.lax.shift_left(jnp.full_like(zero, 1),
-                                            pc - 1) | raw, pc)
-        nbits = jnp.where(is_match, clen + plen_ + raw_n, clen)
-        adv = jnp.where(is_match, mlen, 1)
-        mark = jnp.where(is_match,
-                         (_KIND_MATCH << 28)
-                         | jax.lax.shift_left(pval, 9) | mlen,
-                         (_KIND_LIT << 28) | csym)
-
+        nbits, adv, mark = _token(w0, w1, w2, bitpos & 31,
+                                  lambda i: t_flat[t_base + i])
         col = jnp.where(act, out_pos, jnp.int32(BLOCK))
         out = out.at[seg, col].set(mark, mode="drop")
         return (jnp.where(act, bitpos + nbits, bitpos),
-                jnp.where(act, out_pos + adv, out_pos),
-                jnp.where(act, okn, ok), out)
+                jnp.where(act, out_pos + adv, out_pos), out)
 
     def cond(c):
-        return jnp.any(c[2] & (c[1] < out_len))
+        return jnp.any(c[1] < out_len)
 
-    init = (body_bit_local, start_pos, jnp.ones((NB,), bool),
+    init = (body_bit_local, start_pos,
             jnp.zeros((NB, BLOCK + 1), jnp.int32))
     final = jax.lax.while_loop(cond, body, init)
-    return final[3][:, :BLOCK]
+    return final[2][:, :BLOCK]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "nblk"))
+@functools.partial(jax.jit, static_argnames=("walk",))
 def _decode_fn(stream_words, body_bit_local, out_len, start_pos, carry,
-               dense_off, tab, interpret: bool = False,
-               nblk: int = 8):
+               dense_off, tab, walk: str = "reference"):
     NB = out_len.shape[0]
     markers = _walk(stream_words, body_bit_local, out_len, start_pos,
-                    tab, interpret=interpret, nblk=nblk)
+                    tab, walk=walk)
     words0 = jnp.zeros((NB, 1), jnp.int32)  # no stored blocks in lzhuf
     zeros = jnp.zeros((NB,), jnp.int32)
     markers = _materialize_fn(markers, words0, zeros + 1, zeros, zeros,
@@ -400,32 +257,31 @@ def _decode_fn(stream_words, body_bit_local, out_len, start_pos, carry,
     mpark = jnp.where(live, markers, (_KIND_LIT << 28))
     _, dense = jax.lax.sort(
         (key.reshape(-1), mpark.reshape(-1)), dimension=0, num_keys=1)
-    return _resolve_fn(dense, dist_bias=1, interpret=interpret)
+    return _resolve_doubling(dense, dist_bias=1)
 
 
 SLICE_BYTES = BLOCK + 16384  # lzhuf worst expansion ~ 9/8 + tables
 
 
 def decompress(data: bytes, orig_size: int, dict_bits: int,
-               interpret: bool | None = None) -> bytes | None:
+               walk: str | None = None) -> bytes | None:
     """Device decode of one lzhuf body. None = declined (caller uses the
     host decoder)."""
-    return decompress_many([(data, orig_size)], dict_bits, interpret)[0]
+    return decompress_many([(data, orig_size)], dict_bits, walk)[0]
 
 
 def decompress_many(items, dict_bits: int,
-                    interpret: bool | None = None) -> list:
+                    walk: str | None = None) -> list:
     """Batch decode: all buffers' segments share ONE fused device walk +
     resolution (valid streams' matches never reach before their own
     start, so the dense pointer space is shared safely; the indexer
     validated every distance). items: [(body_bytes, orig_size)].
     Entries come back None where declined."""
-    from tpz import oracle
+    from tpz import device, oracle
     from tpz.constants import LZHUF_METHODS
-    from tpz.kernels.device_quirks import fetch
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    if walk is None:
+        walk = device.walk_mode()
     results = [None] * len(items)
     idxs = []
     parsed = []
@@ -435,13 +291,16 @@ def decompress_many(items, dict_bits: int,
             results[i] = b""
             continue
         if orig_size > (1 << 24):
+            device.decline("lzhuf_span")
             continue
         idx = oracle.lzhuf_index(data, orig_size, dict_bits,
                                  seg_out=BLOCK)
         if idx is None or len(idx["out_lens"]) == 0:
+            device.decline("lzhuf_index")
             continue
         spans = ((idx["end_bits"] + 7) // 8 + 1 - idx["seg_bits"] // 8)
         if int(spans.max()) > SLICE_BYTES:
+            device.decline("lzhuf_slice")
             continue
         total += orig_size
         idxs.append(i)
@@ -451,9 +310,9 @@ def decompress_many(items, dict_bits: int,
     if total > (1 << 24):  # packed-pointer bound: split the batch
         half = len(idxs) // 2 or 1
         a = decompress_many([items[i] for i in idxs[:half]], dict_bits,
-                            interpret)
+                            walk)
         b = decompress_many([items[i] for i in idxs[half:]], dict_bits,
-                            interpret)
+                            walk)
         for i, r in zip(idxs[:half] + idxs[half:], a + b):
             results[i] = r
         return results
@@ -468,6 +327,7 @@ def decompress_many(items, dict_bits: int,
             or (None, None)
         pt = build_tables(idx["p_lens"], idx["p_consts"], np_)
         if cl1 is None or pt is None:
+            device.decline("lzhuf_l2_overflow")
             continue
         pl1, pl2 = pt
         tabs.append((cl1, cl2, pl1, pl2))
@@ -510,8 +370,8 @@ def decompress_many(items, dict_bits: int,
     out = _decode_fn(
         jnp.asarray(sw), jnp.asarray(sym_local), jnp.asarray(ol),
         jnp.asarray(carry_len), jnp.asarray(carry),
-        jnp.asarray(dense_off), jnp.asarray(tabr), interpret=interpret)
-    flat = np.asarray(fetch(out))
+        jnp.asarray(dense_off), jnp.asarray(tabr), walk=walk)
+    flat = device.fetch(out)
     pos = 0
     for i, (idx, _) in zip(idxs, parsed):
         n_out = int(idx["out_lens"].sum())

@@ -1,8 +1,8 @@
 """LZSS match finding on device — the flagship kernel (SURVEY.md §2.1 LZSS
 row: "batched-window match scan", §7 hard part 1).
 
-Implements the same "parse spec v1" as cpp/lzss.cc, reformulated for the
-VPU instead of hash-chain pointer chasing:
+Implements the same "parse spec v1" as cpp/lzss.cc, reformulated as
+vector sorts and compares instead of hash-chain pointer chasing:
 
   candidates   The oracle's "K most recent previous positions with the same
                3-byte hash, within the window" is exactly "the K sorted-
@@ -144,12 +144,10 @@ def suffix_screen_w(words: jax.Array, span_off: jax.Array,
 
     Returns (pk1, pk2, cap_at): all [NB, M] in position order. pk packs a
     candidate as ((j + 1) << 6) | (s + 1) — j the candidate M-index (-1
-    none), s its LCP clamped to min(screen_bytes, cap) — exactly the
-    layout the parse walks (parse.py v3w/v3y) consume; no-candidate packs to 0.
-    Position order is restored by ONE inverse-permutation sort keyed on
-    the sorted positions (they are a permutation of 0..M-1) instead of
-    four XLA scatters: scatter costs per update (~0.14 G/s on this chip,
-    BASELINE.md) while the sort runs ~25x faster at this geometry.
+    none), s its LCP clamped to min(screen_bytes, cap); no-candidate packs
+    to 0. Position order is restored by ONE inverse-permutation sort keyed
+    on the sorted positions (they are a permutation of 0..M-1) instead of
+    four XLA scatters.
     """
     NB, M = words.shape
     nw = screen_bytes // 4
@@ -236,45 +234,6 @@ def suffix_screen_w(words: jax.Array, span_off: jax.Array,
     pk2 = jnp.where(j2 >= 0, ((j2 + 1) << 6) | (s2 + 1), 0)
     _, opk1, opk2 = jax.lax.sort((spos, pk1, pk2), dimension=1, num_keys=1)
     return opk1, opk2, cap_at
-
-
-def suffix_screen_w_chunked(words, span_off, span_len, r_neighbors,
-                            window, block, max_match, screen_bytes,
-                            restart: int = 0, chunk: int = 64):
-    """suffix_screen_w with bounded HBM liveness: rows are independent,
-    so batches larger than `chunk` run through lax.map over row groups
-    INSIDE the same program — the screen sort's ~6-operand working set
-    (the whole pipeline's HBM peak, BASELINE.md) shrinks to one chunk
-    while outputs accumulate. Bit-identical to the unchunked screen."""
-    NB, M = words.shape
-    if NB <= chunk:
-        return suffix_screen_w(words, span_off, span_len, r_neighbors,
-                               window, block, max_match, screen_bytes,
-                               restart)
-    G = -(-NB // chunk)
-    padn = G * chunk - NB
-
-    def padr(x):
-        return jnp.concatenate(
-            [x, jnp.zeros((padn,) + x.shape[1:], x.dtype)], axis=0) \
-            if padn else x
-
-    sl_nd = getattr(span_len, "ndim", 0)
-    slc = padr(span_len) if sl_nd else jnp.broadcast_to(
-        jnp.asarray(span_len), (G * chunk,))
-    args = (padr(words).reshape(G, chunk, M),
-            padr(span_off).reshape(G, chunk),
-            slc.reshape(G, chunk))
-
-    def one(a):
-        w, so, sl_ = a
-        return suffix_screen_w(w, so, sl_, r_neighbors, window, block,
-                               max_match, screen_bytes, restart)
-
-    pk1, pk2, cap_at = jax.lax.map(one, args)
-    return (pk1.reshape(G * chunk, M)[:NB],
-            pk2.reshape(G * chunk, M)[:NB],
-            cap_at.reshape(G * chunk, M)[:NB])
 
 
 def find_matches_v3(words: jax.Array, span_off: jax.Array,
@@ -398,26 +357,6 @@ def lcp_from_ranks(ranks: dict, p: jax.Array, q: jax.Array, words: jax.Array,
     return jnp.minimum(ln, cap)
 
 
-def lcp8(words: jax.Array, data: jax.Array, p: jax.Array, q: jax.Array,
-         cap: jax.Array) -> jax.Array:
-    """Clamped 8-byte screening LCP via two u32 compares + byte refinement.
-
-    Matches the oracle's screen: number of equal bytes among the first
-    min(8, cap)."""
-    nbidx = jax.lax.broadcasted_iota(jnp.int32, p.shape, 0)
-    maxi = words.shape[1] - 1
-    w_p0 = words[nbidx, jnp.minimum(p, maxi)]
-    w_q0 = words[nbidx, jnp.minimum(q, maxi)]
-    w_p4 = words[nbidx, jnp.minimum(p + 4, maxi)]
-    w_q4 = words[nbidx, jnp.minimum(q + 4, maxi)]
-    x0 = w_p0 ^ w_q0
-    x4 = w_p4 ^ w_q4
-    z0 = _match_bytes_u32(x0)           # 0..4 equal leading bytes
-    z4 = _match_bytes_u32(x4)
-    ln = jnp.where(z0 == 4, 4 + z4, z0)
-    return jnp.minimum(ln, cap)
-
-
 def _match_bytes_u32(x: jax.Array) -> jax.Array:
     """Number of leading zero BYTES of little-endian u32 xor value."""
     b0 = (x & jnp.uint32(0xFF)) == 0
@@ -437,18 +376,9 @@ def _span_len_col(span_len, NB):
     return sl[:, None]
 
 
-def screen_candidates(data: jax.Array, span_off: jax.Array,
+def screen_candidates(words: jax.Array, span_off: jax.Array,
                       span_len: jax.Array, k: int, window: int, block: int,
                       max_match: int):
-    """Compatibility wrapper: computes 4-byte windows from byte data, then
-    delegates to screen_candidates_w."""
-    return screen_candidates_w(words_at(data), span_off, span_len, k,
-                               window, block, max_match)
-
-
-def screen_candidates_w(words: jax.Array, span_off: jax.Array,
-                        span_len: jax.Array, k: int, window: int, block: int,
-                        max_match: int):
     """Common prefix of find_matches: hash, per-position caps, sorted-space
     candidate screening, taking precomputed u32 4-byte windows (byte value
     at p = words[p] & 0xFF). Returns (best_j, best_screen, words, cap_at)
@@ -490,8 +420,8 @@ def find_matches(data: jax.Array, span_off: jax.Array, span_len: jax.Array,
     position best_match (before parsing).
     """
     NB, M = data.shape
-    bj, bs, words, cap_at = screen_candidates(data, span_off, span_len, k,
-                                              window, block, max_match)
+    bj, bs, words, cap_at = screen_candidates(
+        words_at(data), span_off, span_len, k, window, block, max_match)
 
     p = jax.lax.broadcasted_iota(jnp.int32, (NB, block), 1) + window
     best_j = bj[:, window:window + block]

@@ -2,20 +2,13 @@
 
 The sequential greedy parse is the chain p -> p + step(p) with
 step(p) = match_len(p) if a valid match starts at p else 1; the token set
-is the set of positions reachable from the block start. Two equivalent
-device implementations:
-
-  - Pallas kernel (TPU path): the chain visits ~1 position per token, so a
-    VMEM-resident scalar walk (one grid step per block, blocks pipelined)
-    is far cheaper than log-round gathers on hardware where XLA gather
-    runs at ~140 M elem/s.
-  - Pointer-doubling (portable XLA path, also the spec reference):
-    S_0 = {0}; S_{r+1} = S_r ∪ f_{2^r}(S_r); f_{2^{r+1}} = f_{2^r}∘f_{2^r}
-    — every step count has a unique binary decomposition, so the union
-    enumerates the whole chain in log2(N) gather+scatter rounds.
-
-Both produce the identical token stream to cpp/lzss.cc's while-loop
-(differential-tested in tests/test_kernels.py).
+is the set of positions reachable from the block start. The device
+computes it by pointer doubling:
+S_0 = {0}; S_{r+1} = S_r ∪ f_{2^r}(S_r); f_{2^{r+1}} = f_{2^r}∘f_{2^r}
+— every step count has a unique binary decomposition, so the union
+enumerates the whole chain in log2(N) gather+scatter rounds. It produces
+the identical token stream to cpp/lzss.cc's while-loop (differential-
+tested in tests/test_kernels.py).
 """
 
 from __future__ import annotations
@@ -24,1054 +17,6 @@ import jax
 import jax.numpy as jnp
 
 from tpz.kernels.matchfinder import MIN_MATCH
-
-
-def _parse_pallas(step: jax.Array, interpret: bool = False) -> jax.Array:
-    """step: [NB, N] int32 jump sizes -> [NB, N] int32 reach mask.
-
-    Data is viewed [NB, N/128, 128] to satisfy TPU tile constraints; the
-    walk addresses element p as [p >> 7, p & 127]."""
-    from jax.experimental import pallas as pl
-
-    NB, N = step.shape
-    assert N % 128 == 0
-    rows = N // 128
-    step3 = step.reshape(NB, rows, 128)
-
-    def kernel(step_ref, out_ref):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-        def cond(p):
-            return p < N
-
-        def body(p):
-            r = p >> 7
-            c = p & 127
-            # Mosaic has no scalar VMEM stores: RMW the (1,128) row instead.
-            row = out_ref[0, pl.ds(r, 1), :]
-            out_ref[0, pl.ds(r, 1), :] = row | (lane == c).astype(jnp.int32)
-            srow = step_ref[0, pl.ds(r, 1), :]
-            step_v = jnp.sum(jnp.where(lane == c, srow, 0))
-            return p + step_v
-
-        jax.lax.while_loop(cond, body, jnp.int32(0))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(NB,),
-        in_specs=[pl.BlockSpec((1, rows, 128), lambda b: (b, 0, 0))],
-        out_specs=pl.BlockSpec((1, rows, 128), lambda b: (b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((NB, rows, 128), jnp.int32),
-        interpret=interpret,
-    )(step3)
-    return out.reshape(NB, N)
-
-
-def parse_extend_pallas(screen: jax.Array, best_j: jax.Array,
-                        words: jax.Array, block_len: jax.Array,
-                        window: int, max_match: int = 258,
-                        too_far: int = 4096, lazy: bool = False,
-                        interpret: bool = False):
-    """Fused greedy parse + winner match extension (the SURVEY.md §7
-    hard-part-1 endgame): the chain walk visits ~1 position per token, and
-    only visited positions need full extension — so the byte-compare loop
-    runs inside the walk on VMEM-resident 4-byte words instead of paying
-    rank-array sorts + 20 gathers per position in XLA-land.
-
-    screen/best_j: [NB, N] int32 (clamped 8-byte screen; winner M-index or
-    -1); words: [NB, M] int32 (u32 4-byte windows, bitcast); block_len:
-    [NB, 1] int32. Returns (reach [NB, N] int32, mlen [NB, N] int32) —
-    mlen is the spec-v1 match length at token positions (0 = literal),
-    identical to find_matches+greedy_parse output at those positions.
-
-    Screen and winner travel as one packed word ((j+1) << 4 | screen+1)
-    and the outputs share one packed word (len+1 at visited positions) so
-    the walk pays a single dynamic-row read and a single RMW per step.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    NB, N = screen.shape
-    M = words.shape[1]
-    assert N % 128 == 0 and M % 128 == 0
-    r_n, r_m = N // 128, M // 128
-    packed = ((best_j + 1) << 4) | jnp.clip(screen + 1, 0, 9)
-    p3 = packed.reshape(NB, r_n, 128)
-    w3 = words.reshape(NB, r_m, 128)
-
-    def kernel(blen_ref, p_ref, w_ref, out_ref):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_ref[...] = jnp.zeros_like(out_ref)
-        blen = blen_ref[pl.program_id(0), 0]
-
-        def rd(ref, pos):
-            row = ref[0, pl.ds(pos >> 7, 1), :]
-            return jnp.sum(jnp.where(lane == (pos & 127), row, 0))
-
-        def sel(row, pos):
-            return jnp.sum(jnp.where(lane == (pos & 127), row, 0))
-
-        def lzbytes(x):
-            b0 = (x & 0xFF) == 0
-            b1 = (x & 0xFFFF) == 0
-            b2 = (x & 0xFFFFFF) == 0
-            return (b0.astype(jnp.int32) + b1.astype(jnp.int32)
-                    + b2.astype(jnp.int32))
-
-        def match_len_from(pk, p):
-            """Spec-v1 best match length at p (0 = literal), mirroring
-            cpp/lzss.cc best_match incl. the too-far rule. pk is the
-            packed screen/winner word at p."""
-            s = (pk & 15) - 1
-            j = (pk >> 4) - 1
-            cap = jnp.minimum(jnp.int32(max_match), blen - p)
-            screen_cap = jnp.minimum(jnp.int32(8), cap)
-
-            def extend(_):
-                def ebody(k):
-                    w1 = rd(w_ref, p + window + k)
-                    w2 = rd(w_ref, j + k)
-                    x = w1 ^ w2
-                    adv = jnp.where(x == 0, 4, lzbytes(x))
-                    k2 = jnp.minimum(k + adv, cap)
-                    # mismatch: push k past cap (sentinel bit) to exit
-                    return jnp.where(x == 0, k2, k2 + jnp.int32(1 << 20))
-
-                k = jax.lax.while_loop(lambda k: (k < cap), ebody, s)
-                return jnp.minimum(k & jnp.int32((1 << 20) - 1), cap)
-
-            ln = jax.lax.cond((s >= 3) & (s >= screen_cap), extend,
-                              lambda _: s, 0)
-            ln = jnp.where(s < 3, 0, ln)
-            dist = p + jnp.int32(window) - j
-            ln = jnp.where((ln == 3) & (dist > too_far), 0, ln)
-            return jnp.where(j < 0, 0, ln)
-
-        # The walk advances monotonically (~5 bytes/token), so consecutive
-        # tokens usually hit the same 128-lane row: cache the current
-        # packed-input row and accumulate the output row in the loop carry,
-        # paying the dynamic-row VMEM access only on row transitions
-        # (~1 in 25 tokens) instead of 2-3 times per token.
-        def cond(c):
-            return c[0] < N
-
-        def body(c):
-            p, r, prow, orow = c
-            r_new = p >> 7
-            changed = r_new != r
-
-            @pl.when(changed)
-            def _():
-                out_ref[0, pl.ds(r, 1), :] = orow
-
-            prow = jax.lax.cond(
-                changed, lambda: p_ref[0, pl.ds(r_new, 1), :],
-                lambda: prow)
-            orow = jnp.where(changed, jnp.zeros_like(orow), orow)
-
-            ln = match_len_from(sel(prow, p), p)
-            if lazy:
-                # one-step lazy (cpp/lzss.cc lazy profile): if the match
-                # starting at p+1 is strictly longer, emit a literal at p.
-                def lz():
-                    pk2 = jax.lax.cond(
-                        ((p + 1) >> 7) == r_new,
-                        lambda: sel(prow, p + 1),
-                        lambda: rd(p_ref, p + 1))
-                    return match_len_from(pk2, p + 1)
-
-                ln2 = jax.lax.cond((ln > 0) & (p + 1 < blen), lz,
-                                   lambda: jnp.int32(0))
-                ln = jnp.where(ln2 > ln, 0, ln)
-            orow = jnp.where(lane == (p & 127), ln + 1, orow)
-            return p + jnp.maximum(ln, 1), r_new, prow, orow
-
-        init = (jnp.int32(0), jnp.int32(0), p_ref[0, pl.ds(0, 1), :],
-                jnp.zeros((1, 128), jnp.int32))
-        p, r, prow, orow = jax.lax.while_loop(cond, body, init)
-        out_ref[0, pl.ds(r, 1), :] = orow  # flush the final row
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(NB,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # whole [NB,1] array
-            pl.BlockSpec((1, r_n, 128), lambda b: (b, 0, 0)),
-            pl.BlockSpec((1, r_m, 128), lambda b: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, r_n, 128), lambda b: (b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((NB, r_n, 128), jnp.int32),
-        interpret=interpret,
-    )(block_len, p3, w3)
-    out = out.reshape(NB, N)
-    return out, jnp.maximum(out - 1, 0)
-
-
-def parse_extend_pallas_v3w(pk1: jax.Array, pk2: jax.Array,
-                            words: jax.Array, block_len: jax.Array,
-                            window: int, max_match: int = 258,
-                            screen_bytes: int = 16, too_far: int = 4096,
-                            lazy: bool = False, max_lazy: int = 258,
-                            restart: int = 0, nblk: int = 4,
-                            interpret: bool = False):
-    """Interleaved spec-v3 walk: W = nblk * (N / restart) independent
-    sub-walk chains advance one micro-step per loop iteration inside ONE
-    kernel body, so their dynamic-row VMEM accesses pipeline instead of
-    serializing (bench/probe_interleave.py: 150 ns/read for one dependent
-    chain vs ~28 ns/read at 8-way interleave on this chip).
-
-    The chains exist because of the parse-restart rule (cpp/lzss.h
-    LzssParams.restart): match lengths are capped at restart-aligned
-    sub-boundaries, so the greedy chain provably visits every boundary and
-    each sub-range's parse is independent. restart == 0 (or == N) degrades
-    to one chain per block (byte-identical to parse_extend_pallas_v3).
-
-    Each chain is a 6-state machine doing at most one (row, lane) read
-    pair per iteration: TOK (read packed screen candidates at q = p + tgt)
-    or EXT (one 4-byte extension compare); candidate-2 extension and the
-    lazy probe (tgt=1) re-enter the same states. pk1/pk2/words are
-    concatenated row-wise into one VMEM ref so the two reads use
-    state-predicated (row, lane) addresses. Output marks are accumulated
-    in a per-chain row register and stored unconditionally each iteration
-    (rows are chain-owned, so the walk never needs a read-modify-write).
-
-    Args are as parse_extend_pallas_v3 plus restart/nblk; returns
-    (reach, mlen, mdist) with junk zeros past block_len (the sequential
-    walk emits junk marks there instead; both are masked downstream).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    NB, N = pk1.shape
-    M = words.shape[1]
-    assert N % 128 == 0 and M % 128 == 0
-    r_n, r_m = N // 128, M // 128
-    if not restart or restart >= N:
-        restart = N
-    assert restart % 128 == 0 and N % restart == 0
-    nsub = N // restart
-    W = nblk * nsub
-
-    NBp = -(-NB // nblk) * nblk
-    if NBp != NB:
-        pad = NBp - NB
-        pk1 = jnp.concatenate(
-            [pk1, jnp.zeros((pad, N), pk1.dtype)], axis=0)
-        pk2 = jnp.concatenate(
-            [pk2, jnp.zeros((pad, N), pk2.dtype)], axis=0)
-        words = jnp.concatenate(
-            [words, jnp.zeros((pad, M), words.dtype)], axis=0)
-        block_len = jnp.concatenate(
-            [block_len, jnp.zeros((pad, 1), block_len.dtype)], axis=0)
-    comb = jnp.concatenate(
-        [pk1.reshape(NBp, r_n, 128), pk2.reshape(NBp, r_n, 128),
-         words.reshape(NBp, r_m, 128)], axis=1)
-    R = 2 * r_n + r_m
-    WOFF = 2 * r_n
-    SENT = 1 << 20
-    SMASK = (1 << 20) - 1
-
-    def kernel(blen_ref, comb_ref, out_ref):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_ref[...] = jnp.zeros_like(out_ref)
-        g = pl.program_id(0)
-        zero = jnp.int32(0)
-
-        blens = [blen_ref[g * nblk + c // nsub, 0] for c in range(W)]
-        pends = [jnp.minimum(jnp.int32((c % nsub + 1) * restart), blens[c])
-                 for c in range(W)]
-
-        def lzbytes(x):
-            b0 = (x & 0xFF) == 0
-            b1 = (x & 0xFFFF) == 0
-            b2 = (x & 0xFFFFFF) == 0
-            return (b0.astype(jnp.int32) + b1.astype(jnp.int32)
-                    + b2.astype(jnp.int32))
-
-        def step_chain(c, s):
-            blk = c // nsub
-            blen = blens[c]
-            pend = pends[c]
-            (p, st, tgt, cand, k, j, cap, scap, nz, res1, jres1, s2v, j2v,
-             ln0, dist0, ro, orow) = s
-            act = p < pend
-            is_ext = act & (st == 1)
-            is_tok = act & (st == 0)
-
-            q = p + tgt
-            qc = jnp.minimum(q, jnp.int32(N - 1))
-            ea = jnp.minimum(q + jnp.int32(window) + k, jnp.int32(M - 1))
-            eb = jnp.clip(j + k, 0, jnp.int32(M - 1))
-            rowA = jnp.where(is_ext, WOFF + (ea >> 7), qc >> 7)
-            lanA = jnp.where(is_ext, ea & 127, qc & 127)
-            rowB = jnp.where(is_ext, WOFF + (eb >> 7), r_n + (qc >> 7))
-            lanB = jnp.where(is_ext, eb & 127, qc & 127)
-            ra = comb_ref[blk, pl.ds(rowA, 1), :]
-            a = jnp.sum(jnp.where(lane == lanA, ra, 0))
-            rb = comb_ref[blk, pl.ds(rowB, 1), :]
-            b = jnp.sum(jnp.where(lane == lanB, rb, 0))
-
-            # ---- TOK: unpack screen candidates at q ----
-            ss1 = (a & 63) - 1
-            jj1 = (a >> 6) - 1
-            ss2 = (b & 63) - 1
-            jj2 = (b >> 6) - 1
-            cap_t = jnp.minimum(jnp.int32(max_match), blen - q)
-            if nsub > 1:
-                cap_t = jnp.minimum(
-                    cap_t, jnp.int32(restart) - (q & jnp.int32(restart - 1)))
-            scap_t = jnp.minimum(jnp.int32(screen_bytes), cap_t)
-            no1 = (jj1 < 0) | (ss1 < 3)
-            go_ext = is_tok & (ss1 >= scap_t) & (jj1 >= 0)
-            fin_tok = is_tok & ~((ss1 >= scap_t) & (jj1 >= 0))
-
-            # ---- EXT: one 4-byte compare step ----
-            x = a ^ b
-            adv = jnp.where(x == 0, 4, lzbytes(x))
-            k2 = jnp.minimum(k + adv, cap)
-            kn = jnp.where(x == 0, k2, k2 + SENT)
-            edone = is_ext & (kn >= cap)
-            lnc = jnp.minimum(kn & SMASK, cap)
-            need2 = (j2v >= 0) & (s2v >= scap) & (lnc < cap)
-            b_to2 = edone & (cand == 1) & need2
-            b_fin1 = edone & (cand == 1) & ~need2
-            b_fin2 = edone & (cand == 2)
-            use2 = lnc > res1
-
-            # ---- FIN: apply min-match / too-far rules, lazy, emit ----
-            fin_now = fin_tok | b_fin1 | b_fin2
-            lnf = jnp.where(fin_tok, ss1,
-                            jnp.where(b_fin2, jnp.maximum(lnc, res1), lnc))
-            jf = jnp.where(fin_tok, jj1,
-                           jnp.where(b_fin2 & ~use2, jres1, j))
-            nzv = jnp.where(fin_tok, no1, nz != 0)
-            lnf = jnp.where(nzv, 0, lnf)
-            distf = q + jnp.int32(window) - jf
-            lnf = jnp.where((lnf == 3) & (distf > too_far), 0, lnf)
-            distf = jnp.where(lnf > 0, distf, 0)
-
-            if lazy:
-                golazy = (fin_now & (tgt == 0) & (lnf > 0)
-                          & (lnf < jnp.int32(max_lazy)) & (p + 1 < blen))
-            else:
-                golazy = fin_now & False
-            do_emit = fin_now & ~golazy
-            demote = lnf > ln0
-            lnE = jnp.where(tgt == 0, lnf, jnp.where(demote, zero, ln0))
-            dE = jnp.where(tgt == 0, distf, jnp.where(demote, zero, dist0))
-            mark = (dE << 10) | (lnE + 1)
-
-            # ---- next state ----
-            st_n = jnp.where(go_ext | b_to2, 1, jnp.where(fin_now, 0, st))
-            tgt_n = jnp.where(golazy, 1, jnp.where(do_emit, zero, tgt))
-            cand_n = jnp.where(go_ext, 1, jnp.where(b_to2, 2, cand))
-            k_n = jnp.where(go_ext, ss1, jnp.where(
-                b_to2, s2v, jnp.where(is_ext & ~edone, kn, k)))
-            j_n = jnp.where(go_ext, jj1, jnp.where(b_to2, j2v, j))
-            cap_n = jnp.where(go_ext, cap_t, cap)
-            scap_n = jnp.where(go_ext, scap_t, scap)
-            nz_n = jnp.where(go_ext, no1.astype(jnp.int32), nz)
-            res1_n = jnp.where(b_to2, lnc, res1)
-            jres1_n = jnp.where(b_to2, j, jres1)
-            ln0_n = jnp.where(golazy, lnf, ln0)
-            dist0_n = jnp.where(golazy, distf, dist0)
-            p_n = jnp.where(do_emit, p + jnp.maximum(lnE, 1), p)
-
-            mrow = p >> 7
-            changed = do_emit & (mrow != ro)
-            orow_n = jnp.where(changed, jnp.zeros_like(orow), orow)
-            orow_n = jnp.where(do_emit & (lane == (p & 127)), mark, orow_n)
-            ro_n = jnp.where(changed, mrow, ro)
-            out_ref[blk, pl.ds(ro_n, 1), :] = orow_n
-            return (p_n, st_n, tgt_n, cand_n, k_n, j_n, cap_n, scap_n,
-                    nz_n, res1_n, jres1_n, s2v, j2v, ln0_n, dist0_n,
-                    ro_n, orow_n)
-
-        def init_chain(c):
-            p0 = jnp.int32((c % nsub) * restart)
-            return (p0, zero, zero, zero, zero, zero, jnp.int32(1),
-                    zero, zero, zero, zero, zero, zero, zero, zero,
-                    p0 >> 7, jnp.zeros((1, 128), jnp.int32))
-
-        def cond(states):
-            alive = states[0][0] < pends[0]
-            for c in range(1, W):
-                alive = alive | (states[c][0] < pends[c])
-            return alive
-
-        def body(states):
-            return tuple(step_chain(c, states[c]) for c in range(W))
-
-        jax.lax.while_loop(cond, body,
-                           tuple(init_chain(c) for c in range(W)))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(NBp // nblk,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((nblk, R, 128), lambda b: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((nblk, r_n, 128), lambda b: (b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((NBp, r_n, 128), jnp.int32),
-        interpret=interpret,
-    )(block_len, comb)
-    out = out.reshape(NBp, N)[:NB]
-    visited = out & 1023
-    mlen = jnp.maximum(visited - 1, 0)
-    mdist = jnp.where(visited > 0, out >> 10, 0)
-    return visited, mlen, mdist
-
-
-def _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
-              screen_bytes, too_far, lazy, max_lazy):
-    """XLA mark precompute shared by the v3y scalar walk and the v3z
-    lane-parallel walk: an unsaturated token's outcome (length, distance,
-    rules, lazy demotion) is a pure elementwise function of its screen
-    word, precomputed as a ready-to-emit mark; saturated positions (and
-    lazy probes over a saturated neighbour) carry the raw screen word
-    plus a flag bit. Returns w1 [NB, N] int32."""
-    NB, N = pk1.shape
-    RAW = 1 << 30
-    pos = jax.lax.broadcasted_iota(jnp.int32, (NB, N), 1)
-    ss1p = (pk1 & 63) - 1
-    jj1p = (pk1 >> 6) - 1
-    scapp = jnp.minimum(jnp.int32(screen_bytes), cap_at)
-    satp = (ss1p >= scapp) & (jj1p >= 0)
-    no1p = (jj1p < 0) | (ss1p < 3)
-    lnp = jnp.where(no1p, 0, ss1p)
-    distp = pos + jnp.int32(window) - jj1p
-    lnp = jnp.where((lnp == 3) & (distp > too_far), 0, lnp)
-    distp = jnp.where(lnp > 0, distp, 0)
-    if lazy:
-        z1 = jnp.zeros((NB, 1), jnp.int32)
-        ln_next = jnp.concatenate([lnp[:, 1:], z1], axis=1)
-        sat_next = jnp.concatenate(
-            [satp[:, 1:], jnp.zeros((NB, 1), bool)], axis=1)
-        probe_would = ((lnp > 0) & (lnp < jnp.int32(max_lazy))
-                       & (pos + 1 < block_len))
-        demote = probe_would & ~sat_next & (ln_next > lnp)
-        flagged = satp | (probe_would & sat_next)
-    else:
-        demote = jnp.zeros((NB, N), bool)
-        flagged = satp
-    markp = jnp.where(demote | (lnp == 0), (lnp << 10) | 1,
-                      (distp << 10) | (lnp + 1))
-    return jnp.where(flagged, pk1 | RAW, markp)
-
-
-def parse_extend_pallas_v3y(pk1: jax.Array, pk2: jax.Array,
-                            cap_at: jax.Array, words: jax.Array,
-                            block_len: jax.Array, window: int,
-                            max_match: int = 258, screen_bytes: int = 16,
-                            too_far: int = 4096, lazy: bool = False,
-                            max_lazy: int = 258, restart: int = 0,
-                            nblk: int = 4, interpret: bool = False):
-    """v3w's proven interleaved body + the v3x mark fast path, without the
-    parts A/B testing showed Mosaic's in-order pipeline punishes (no extra
-    read ports, no dependent prefetch, no pl.when branches).
-
-    An unsaturated token's outcome — length, distance, rules, and the lazy
-    demotion — is a pure elementwise function of its screen word, so it is
-    precomputed in XLA as a ready-to-emit mark; only ~2-3% of visited
-    positions saturate on mixed data (the rest land between matches), so
-    the walk usually does ONE read + a dozen ops per token instead of
-    v3w's 2+ micro-steps. Flagged positions (saturated, or lazy probe over
-    a saturated neighbour) carry their raw screen word + a flag bit and
-    take the exact v3w TOK/EXT/probe machinery; a probe landing on an
-    unflagged neighbour reads its pre-demotion length straight from the
-    mark (demoted/literal marks store it at bits 10+).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    NB, N = pk1.shape
-    M = words.shape[1]
-    assert N % 128 == 0 and M % 128 == 0
-    r_n, r_m = N // 128, M // 128
-    if not restart or restart >= N:
-        restart = N
-    assert restart % 128 == 0 and N % restart == 0
-    nsub = N // restart
-    # SMEM holds the per-chain sliding windows (~154 KiB each, see
-    # below), bounding the chain count at ~5; the walk is issue-bound
-    # (round-3 W-sweep flat) so this costs nothing.
-    nblk = max(1, min(nblk, 5 // nsub if nsub <= 5 else 1))
-    W = nblk * nsub
-    RAW = 1 << 30
-
-    # ---- XLA mark precompute (identical rules to the kernel) ----
-    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
-                   screen_bytes, too_far, lazy, max_lazy)
-
-    NBp = -(-NB // nblk) * nblk
-    if NBp != NB:
-        pad = NBp - NB
-        w1 = jnp.concatenate([w1, jnp.zeros((pad, N), w1.dtype)], axis=0)
-        pk2 = jnp.concatenate(
-            [pk2, jnp.zeros((pad, N), pk2.dtype)], axis=0)
-        words = jnp.concatenate(
-            [words, jnp.zeros((pad, M), words.dtype)], axis=0)
-        block_len = jnp.concatenate(
-            [block_len, jnp.zeros((pad, 1), block_len.dtype)], axis=0)
-    # Round 4: every per-step read is an SMEM scalar load (8.8 ns, ~0
-    # VPU slots — bench/probe_extract.py) from per-chain sliding windows
-    # refilled by conditional DMA, replacing the two VMEM
-    # row-load+lane-selects (28 ns, ~17 slots each) over the old fused
-    # `comb` operand:
-    #   mp — marks+pk2 interleaved (mp[2q] = mark, mp[2q+1] = pk2). TOK
-    #        reads sit at q in {p, p+1}: a small cursor-local window.
-    #   wd — the 4-byte word windows. In words coordinates (span pos +
-    #        window) EXT reads span [p, p + window + ~320]: j = q +
-    #        window - dist >= q since dist <= window, and ea/eb <= q +
-    #        window + max_match + slack. One window tracking p covers
-    #        both operands.
-    # SMEM bounds the chain count (W * (MPW + WW) * 4 B), so nblk drops
-    # to 1 (W = nsub = 4): the round-3 W-sweep was flat — the walk is
-    # issue-bound, so fewer-but-cheaper chains win.
-    # Flat 1-D HBM operands: the only DMA form this chip's Mosaic
-    # accepts is a 1-D slice covering WHOLE (8,128) tiles — offset and
-    # length both multiples of 1024 words, with the offset in a form the
-    # divisibility analysis can PROVE (constants, program_id products,
-    # and `t * 1024`; NOT `(x>>10)<<10` or `x & ~1023`) — into a flat
-    # 1-D SMEM slice (bench/probe_dma_align3/5 on-chip, 2026-08-20).
-    if M % 1024:
-        words = jnp.concatenate(
-            [words, jnp.zeros((NBp, 1024 - M % 1024), words.dtype)],
-            axis=1)
-        M = words.shape[1]
-    mp = jnp.stack([w1, pk2], axis=2).reshape(NBp * 2 * N)
-    words = words.reshape(NBp * M)
-    SENT = 1 << 20
-    SMASK = (1 << 20) - 1
-    MP_SPAN = min(2048, N)
-    MPW = 2 * MP_SPAN
-    WLOOK = window + max_match + 64
-    WW = min(-(-(64 + WLOOK + 2048) // 1024) * 1024, M)
-    assert MPW % 1024 == 0 and WW % 1024 == 0 and M % 1024 == 0, (
-        f"whole-tile DMA: MPW={MPW} WW={WW} M={M}")
-    assert (2 * N) % 1024 == 0, f"mp row stride must be tile-mult: N={N}"
-    assert W * (MPW + WW) * 4 <= 920 * 1024, (
-        f"SMEM window budget: W={W} MPW={MPW} WW={WW}")
-
-    def kernel(blen_ref, mp_hbm, wd_hbm, out_ref, mp_win, wd_win,
-               mpb_ref, wb_ref, dma_sem):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        out_ref[...] = jnp.zeros_like(out_ref)
-        g = pl.program_id(0)
-        zero = jnp.int32(0)
-
-        blens = [blen_ref[g * nblk + c // nsub, 0] for c in range(W)]
-        pends = [jnp.minimum(jnp.int32((c % nsub + 1) * restart), blens[c])
-                 for c in range(W)]
-
-        for c in range(W):
-            p0 = (c % nsub) * restart
-            row = g * nblk + c // nsub
-            # Static (python-int) bases, aligned so the flat offsets are
-            # whole tiles: 2*mpb0 and wb0 multiples of 1024 words.
-            mpb0 = (min(p0, N - MP_SPAN) >> 9) << 9
-            wb0 = ((min(max(p0 - 64, 0), M - WW) >> 10) << 10)
-            cp = pltpu.make_async_copy(
-                mp_hbm.at[pl.ds(row * (2 * N) + 2 * mpb0, MPW)],
-                mp_win.at[pl.ds(c * MPW, MPW)], dma_sem)
-            cp.start()
-            cp.wait()
-            cp = pltpu.make_async_copy(
-                wd_hbm.at[pl.ds(row * M + wb0, WW)],
-                wd_win.at[pl.ds(c * WW, WW)], dma_sem)
-            cp.start()
-            cp.wait()
-            mpb_ref[c] = mpb0
-            wb_ref[c] = wb0
-
-        def lzbytes(x):
-            b0 = (x & 0xFF) == 0
-            b1 = (x & 0xFFFF) == 0
-            b2 = (x & 0xFFFFFF) == 0
-            return (b0.astype(jnp.int32) + b1.astype(jnp.int32)
-                    + b2.astype(jnp.int32))
-
-        def step_chain(c, s):
-            blk = c // nsub
-            blen = blens[c]
-            pend = pends[c]
-            (p, st, tgt, cand, k, j, cap, scap, nz, res1, jres1, s2v, j2v,
-             ln0, dist0, ro, orow) = s
-            act = p < pend
-            is_ext = act & (st == 1)
-            is_tok = act & (st == 0)
-
-            q = p + tgt
-            qc = jnp.minimum(q, jnp.int32(N - 1))
-            ea = jnp.minimum(q + jnp.int32(window) + k, jnp.int32(M - 1))
-            eb = jnp.clip(j + k, 0, jnp.int32(M - 1))
-
-            # Window refills (rare: every ~2k positions of cursor
-            # advance); `act` gates finished chains off.
-            need_mp = act & ((p + 1 - mpb_ref[c]) >= (MP_SPAN - 1))
-
-            @pl.when(need_mp)
-            def _():
-                # Window base aligned down to 512 positions (= 1024
-                # interleaved words, one whole tile); the coverage loss
-                # is absorbed by MP_SPAN. The `t * 1024` mul form is
-                # what Mosaic's divisibility analysis can prove
-                # (probe_dma_align5).
-                t = jax.lax.shift_right_logical(
-                    jnp.minimum(p, jnp.int32(N - MP_SPAN)), 9)
-                cpm = pltpu.make_async_copy(
-                    mp_hbm.at[pl.ds((g * nblk + blk) * (2 * N) + t * 1024,
-                                    MPW)],
-                    mp_win.at[pl.ds(c * MPW, MPW)], dma_sem)
-                cpm.start()
-                cpm.wait()
-                mpb_ref[c] = t * 512
-
-            need_wd = act & ((p + jnp.int32(WLOOK)) >= (wb_ref[c] + WW))
-
-            @pl.when(need_wd)
-            def _():
-                nb = jax.lax.shift_right_logical(
-                    jnp.clip(p - 64, 0, jnp.int32(M - WW)), 10) * 1024
-                cpw = pltpu.make_async_copy(
-                    wd_hbm.at[pl.ds((g * nblk + blk) * M + nb, WW)],
-                    wd_win.at[pl.ds(c * WW, WW)], dma_sem)
-                cpw.start()
-                cpw.wait()
-                wb_ref[c] = nb
-
-            # Predication runs both reads every step; clip keeps the
-            # inactive one's (stale-state) index inside its window.
-            mo = c * MPW + 2 * jnp.clip(qc - mpb_ref[c], 0, MP_SPAN - 1)
-            wb = wb_ref[c]
-            a_tok = mp_win[mo]
-            b_tok = mp_win[mo + 1]
-            a_ext = wd_win[c * WW + jnp.clip(ea - wb, 0, WW - 1)]
-            b_ext = wd_win[c * WW + jnp.clip(eb - wb, 0, WW - 1)]
-            a = jnp.where(is_ext, a_ext, a_tok)
-            b = jnp.where(is_ext, b_ext, b_tok)
-
-            rawq = (a & RAW) != 0
-            apk = a & jnp.int32(RAW - 1)
-            fast0 = is_tok & ~rawq & (tgt == 0)
-            fast1 = is_tok & ~rawq & (tgt == 1)
-            aln1023 = apk & 1023
-            # Probe length from a mark: demoted/literal marks carry the
-            # raw (pre-demotion) length at bits 10+.
-            amark_ln = jnp.where(aln1023 == 1, apk >> 10, aln1023 - 1)
-
-            # ---- TOK (raw): unpack screen candidates at q ----
-            ss1 = (apk & 63) - 1
-            jj1 = (apk >> 6) - 1
-            ss2 = (b & 63) - 1
-            jj2 = (b >> 6) - 1
-            cap_t = jnp.minimum(jnp.int32(max_match), blen - q)
-            if nsub > 1:
-                cap_t = jnp.minimum(
-                    cap_t, jnp.int32(restart) - (q & jnp.int32(restart - 1)))
-            scap_t = jnp.minimum(jnp.int32(screen_bytes), cap_t)
-            no1 = (jj1 < 0) | (ss1 < 3)
-            go_ext = is_tok & rawq & (ss1 >= scap_t) & (jj1 >= 0)
-            fin_tok = is_tok & rawq & ~((ss1 >= scap_t) & (jj1 >= 0))
-
-            # ---- EXT: one 4-byte compare step ----
-            x = a ^ b
-            adv = jnp.where(x == 0, 4, lzbytes(x))
-            k2 = jnp.minimum(k + adv, cap)
-            kn = jnp.where(x == 0, k2, k2 + SENT)
-            edone = is_ext & (kn >= cap)
-            lnc = jnp.minimum(kn & SMASK, cap)
-            need2 = (j2v >= 0) & (s2v >= scap) & (lnc < cap)
-            b_to2 = edone & (cand == 1) & need2
-            b_fin1 = edone & (cand == 1) & ~need2
-            b_fin2 = edone & (cand == 2)
-            use2 = lnc > res1
-
-            # ---- FIN: rules, lazy, emit ----
-            fin_now = fin_tok | b_fin1 | b_fin2 | fast1
-            lnf = jnp.where(fin_tok, ss1,
-                            jnp.where(b_fin2, jnp.maximum(lnc, res1), lnc))
-            jf = jnp.where(fin_tok, jj1,
-                           jnp.where(b_fin2 & ~use2, jres1, j))
-            nzv = jnp.where(fin_tok, no1, nz != 0)
-            lnf = jnp.where(nzv, 0, lnf)
-            distf = q + jnp.int32(window) - jf
-            lnf = jnp.where((lnf == 3) & (distf > too_far), 0, lnf)
-            distf = jnp.where(lnf > 0, distf, 0)
-            # Mark-resolved probe: already rules-applied at precompute.
-            lnf = jnp.where(fast1, amark_ln, lnf)
-
-            if lazy:
-                golazy = (fin_now & (tgt == 0) & (lnf > 0)
-                          & (lnf < jnp.int32(max_lazy)) & (p + 1 < blen))
-            else:
-                golazy = fin_now & False
-            do_emit = (fin_now & ~golazy) | fast0
-            demote = lnf > ln0
-            lnE = jnp.where(tgt == 0, lnf, jnp.where(demote, zero, ln0))
-            dE = jnp.where(tgt == 0, distf, jnp.where(demote, zero, dist0))
-            mark = jnp.where(fast0, apk, (dE << 10) | (lnE + 1))
-            adv_p = jnp.where(fast0, jnp.maximum(aln1023 - 1, 1),
-                              jnp.maximum(lnE, 1))
-
-            # ---- next state ----
-            st_n = jnp.where(go_ext | b_to2, 1, jnp.where(fin_now, 0, st))
-            tgt_n = jnp.where(golazy, 1, jnp.where(do_emit, zero, tgt))
-            cand_n = jnp.where(go_ext, 1, jnp.where(b_to2, 2, cand))
-            k_n = jnp.where(go_ext, ss1, jnp.where(
-                b_to2, s2v, jnp.where(is_ext & ~edone, kn, k)))
-            j_n = jnp.where(go_ext, jj1, jnp.where(b_to2, j2v, j))
-            cap_n = jnp.where(go_ext, cap_t, cap)
-            scap_n = jnp.where(go_ext, scap_t, scap)
-            nz_n = jnp.where(go_ext, no1.astype(jnp.int32), nz)
-            res1_n = jnp.where(b_to2, lnc, res1)
-            jres1_n = jnp.where(b_to2, j, jres1)
-            ln0_n = jnp.where(golazy, lnf, ln0)
-            dist0_n = jnp.where(golazy, distf, dist0)
-            p_n = jnp.where(do_emit, p + adv_p, p)
-
-            mrow = p >> 7
-            changed = do_emit & (mrow != ro)
-            orow_n = jnp.where(changed, jnp.zeros_like(orow), orow)
-            orow_n = jnp.where(do_emit & (lane == (p & 127)), mark, orow_n)
-            ro_n = jnp.where(changed, mrow, ro)
-            out_ref[blk, pl.ds(ro_n, 1), :] = orow_n
-            return (p_n, st_n, tgt_n, cand_n, k_n, j_n, cap_n, scap_n,
-                    nz_n, res1_n, jres1_n, s2v, j2v, ln0_n, dist0_n,
-                    ro_n, orow_n)
-
-        def init_chain(c):
-            p0 = jnp.int32((c % nsub) * restart)
-            return (p0, zero, zero, zero, zero, zero, jnp.int32(1),
-                    zero, zero, zero, zero, zero, zero, zero, zero,
-                    p0 >> 7, jnp.zeros((1, 128), jnp.int32))
-
-        def cond(states):
-            alive = states[0][0] < pends[0]
-            for c in range(1, W):
-                alive = alive | (states[c][0] < pends[c])
-            return alive
-
-        def body(states):
-            return tuple(step_chain(c, states[c]) for c in range(W))
-
-        jax.lax.while_loop(cond, body,
-                           tuple(init_chain(c) for c in range(W)))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(NBp // nblk,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((nblk, r_n, 128), lambda bb: (bb, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((NBp, r_n, 128), jnp.int32),
-        scratch_shapes=[
-            pltpu.SMEM((W * MPW,), jnp.int32),
-            pltpu.SMEM((W * WW,), jnp.int32),
-            pltpu.SMEM((W,), jnp.int32),
-            pltpu.SMEM((W,), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
-        interpret=interpret,
-    )(block_len, mp, words)
-    out = out.reshape(NBp, N)[:NB]
-    visited = out & 1023
-    mlen = jnp.maximum(visited - 1, 0)
-    mdist = jnp.where(mlen > 0, out >> 10, 0)
-    return visited, mlen, mdist
-
-
-def parse_extend_v3z(pk1: jax.Array, pk2: jax.Array,
-                     cap_at: jax.Array, words: jax.Array,
-                     block_len: jax.Array, window: int,
-                     max_match: int = 258, screen_bytes: int = 16,
-                     too_far: int = 4096, lazy: bool = False,
-                     max_lazy: int = 258, restart: int = 0):
-    """Grouped dispatch wrapper for the lane-parallel v3z parse.
-
-    XLA compile time of the v3z loop grows superlinearly with the block
-    count (measured on this chip, bench/probe_v3z_compile.py: NB=16
-    81 s, NB=32 217 s, NB=128 did not finish in 50 min), so large spans
-    lax.map over fixed-size groups of TPZ_V3Z_GROUP blocks (default 16
-    = 1 MiB): ONE group-shaped program compiles once and is reused for
-    every group, making compile cost span-independent. Within a group
-    all sub-walks still advance together in vector lanes."""
-    import os as _os
-
-    NB = pk1.shape[0]
-    GB = max(1, int(_os.environ.get("TPZ_V3Z_GROUP", "16")))
-    if NB <= GB:
-        return _parse_extend_v3z_core(
-            pk1, pk2, cap_at, words, block_len, window, max_match,
-            screen_bytes, too_far, lazy, max_lazy, restart)
-    pad = (-NB) % GB
-    if pad:
-        def padz(x):
-            return jnp.concatenate(
-                [x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
-
-        pk1, pk2, cap_at, words, block_len = map(
-            padz, (pk1, pk2, cap_at, words, block_len))
-    G = (NB + pad) // GB
-
-    def one(args):
-        return _parse_extend_v3z_core(
-            *args, window, max_match, screen_bytes, too_far, lazy,
-            max_lazy, restart)
-
-    def grp(x):
-        return x.reshape((G, GB) + x.shape[1:])
-
-    visited, mlen, mdist = jax.lax.map(
-        one, (grp(pk1), grp(pk2), grp(cap_at), grp(words),
-              grp(block_len)))
-    N = pk1.shape[1]
-    return (visited.reshape(-1, N)[:NB], mlen.reshape(-1, N)[:NB],
-            mdist.reshape(-1, N)[:NB])
-
-
-def _parse_extend_v3z_core(pk1: jax.Array, pk2: jax.Array,
-                           cap_at: jax.Array, words: jax.Array,
-                           block_len: jax.Array, window: int,
-                           max_match: int = 258, screen_bytes: int = 16,
-                           too_far: int = 4096, lazy: bool = False,
-                           max_lazy: int = 258, restart: int = 0):
-    """Lane-parallel spec-v3 parse (the round-5 formulation-ceiling
-    attack, VERDICT r4 next item 5).
-
-    The serial-walk formulation caps deflate encode at ~46 MB/s on this
-    chip (roofline.walk_positions_per_s: the W~5 interleaved SCALAR
-    chains advance W tokens per loop iteration). The restart rule
-    already makes every 16 KiB sub-range's parse independent — so run
-    ALL NB*nsub sub-walks at once as VECTOR LANES: one loop iteration
-    advances every walk by one micro-step via two dynamic gathers
-    (mark/word reads) and one scatter (token emit). Loop trips drop from
-    sum(tokens) to max-over-walks(tokens + extension steps) — at 16 MiB
-    that is ~3.5 k trips for ~3.3 M tokens, a ~1000x parallelism jump if
-    the per-step gather prices anywhere near the probe numbers
-    (bench/probe_vector_gather.py measures exactly this).
-
-    Pure-XLA formulation: correctness twin of parse_extend_pallas_v3y
-    (identical micro-step state machine, the same _v3_marks fast path;
-    candidate-2 latch semantics preserved). Returns (visited, mlen,
-    mdist) exactly as v3y. A Pallas variant follows once the chip prices
-    the (8,128) take_along_axis step."""
-    NB, N = pk1.shape
-    M = words.shape[1]
-    assert N % 128 == 0 and M % 128 == 0
-    if not restart or restart >= N:
-        restart = N
-    assert N % restart == 0
-    nsub = N // restart
-    NW = NB * nsub
-    RAW = 1 << 30
-    SENT = 1 << 20
-    SMASK = (1 << 20) - 1
-
-    w1 = _v3_marks(pk1, pk2, cap_at, block_len, window, max_match,
-                   screen_bytes, too_far, lazy, max_lazy)
-    # Literal-run collapse: every literal position between matches is
-    # unconditionally visited and emits its own precomputed mark, so a
-    # run of L literals need not cost L trips. Bake "distance to the
-    # next interesting position" (flagged or match mark) into the spare
-    # bits 19..29 of each literal mark; the walk jumps the whole run in
-    # ONE trip and paints the interval with a +-1 delta scatter (the
-    # marks themselves come straight from w1 at the end). This also
-    # collapses the all-literal worst case from `restart` trips to ~8.
-    pos = jax.lax.broadcasted_iota(jnp.int32, (NB, N), 1)
-    aln_w1 = w1 & 1023
-    interesting = ((w1 & RAW) != 0) | (aln_w1 >= 2)
-    cand = jnp.where(interesting, pos, jnp.int32(1 << 28))
-    nxt = jnp.flip(jax.lax.associative_scan(
-        jnp.minimum, jnp.flip(cand, axis=1), axis=1), axis=1)
-    jump = jnp.clip(nxt - pos, 1, 2047)
-    is_lit_mark = ~interesting  # unflagged mark with aln == 1
-    w1 = jnp.where(is_lit_mark, w1 | (jump << 19), w1)
-    # One flat buffer per block: [mp (marks/pk2 interleaved, 2N) | words
-    # (M)] so every read is a single dynamic gather comb[blk*R + off].
-    mp = jnp.stack([w1, pk2], axis=2).reshape(NB, 2 * N)
-    words_i32 = words if words.dtype == jnp.int32 else \
-        jax.lax.bitcast_convert_type(words, jnp.int32)
-    comb = jnp.concatenate([mp, words_i32], axis=1).reshape(-1)
-    R = 2 * N + M
-    WOFF = 2 * N
-
-    wid = jnp.arange(NW, dtype=jnp.int32)
-    blk_w = wid // nsub
-    sub_w = wid % nsub
-    base_w = blk_w * jnp.int32(R)
-    blen_w = block_len.reshape(-1)[blk_w]
-    pend_w = jnp.minimum((sub_w + 1) * jnp.int32(restart), blen_w)
-    zero = jnp.zeros((NW,), jnp.int32)
-
-    def lzbytes(x):
-        b0 = (x & 0xFF) == 0
-        b1 = (x & 0xFFFF) == 0
-        b2 = (x & 0xFFFFFF) == 0
-        return (b0.astype(jnp.int32) + b1.astype(jnp.int32)
-                + b2.astype(jnp.int32))
-
-    def body(c):
-        (p, st, tgt, cand, k, j, cap, scap, nz, res1, jres1, s2v, j2v,
-         ln0, dist0, buf) = c
-        act = p < pend_w
-        is_ext = act & (st == 1)
-        is_tok = act & (st == 0)
-
-        q = p + tgt
-        qc = jnp.minimum(q, jnp.int32(N - 1))
-        ea = jnp.minimum(q + jnp.int32(window) + k, jnp.int32(M - 1))
-        eb = jnp.clip(j + k, 0, jnp.int32(M - 1))
-        offA = jnp.where(is_ext, WOFF + ea, 2 * qc)
-        offB = jnp.where(is_ext, WOFF + eb, 2 * qc + 1)
-        # EXT widening: 8-byte compares halve the dominant trip term
-        # (BASELINE round-5 trip structure). The +4-byte words may read
-        # past cap — harmless, lnc is clamped to cap exactly as the
-        # 4-byte loop's exit does. The second word is word-offset +1 in
-        # words space (4 bytes), valid while ea/eb + 1 <= M - 1.
-        ea2 = jnp.minimum(ea + 4, jnp.int32(M - 1))
-        eb2 = jnp.minimum(eb + 4, jnp.int32(M - 1))
-        offA2 = jnp.where(is_ext, WOFF + ea2, 2 * qc)
-        offB2 = jnp.where(is_ext, WOFF + eb2, 2 * qc + 1)
-        # ONE gather per trip: each gather/scatter HLO in the loop body
-        # has a fixed microcode cost that dominated the walk stage
-        # (8 MiB profile: 476 ms with 4 gathers + 3 scatters per trip),
-        # so all four reads ride a single 4*NW-index gather.
-        g4 = comb[jnp.concatenate(
-            [base_w + offA, base_w + offB,
-             base_w + offA2, base_w + offB2])]
-        a, b = g4[:NW], g4[NW:2 * NW]
-        a2, b2 = g4[2 * NW:3 * NW], g4[3 * NW:]
-
-        rawq = (a & RAW) != 0
-        apk = a & jnp.int32(RAW - 1)
-        fast0 = is_tok & ~rawq & (tgt == 0)
-        fast1 = is_tok & ~rawq & (tgt == 1)
-        aln1023 = apk & 1023
-        # Literal marks carry (raw pre-demotion length | jump<<19); mask
-        # the jump bits out of the probe length.
-        amark_ln = jnp.where(aln1023 == 1, (apk >> 10) & 511,
-                             aln1023 - 1)
-        lit0 = fast0 & (aln1023 == 1)
-        q_to = jnp.minimum(p + jnp.clip((apk >> 19) & 2047, 1, None),
-                           pend_w)
-
-        # ---- TOK (raw): unpack screen candidates at q ----
-        ss1 = (apk & 63) - 1
-        jj1 = (apk >> 6) - 1
-        cap_t = jnp.minimum(jnp.int32(max_match), blen_w - q)
-        if nsub > 1:
-            cap_t = jnp.minimum(
-                cap_t, jnp.int32(restart) - (q % jnp.int32(restart)))
-        scap_t = jnp.minimum(jnp.int32(screen_bytes), cap_t)
-        no1 = (jj1 < 0) | (ss1 < 3)
-        go_ext = is_tok & rawq & (ss1 >= scap_t) & (jj1 >= 0)
-        fin_tok = is_tok & rawq & ~((ss1 >= scap_t) & (jj1 >= 0))
-
-        # ---- EXT: one 8-byte compare step (two 4-byte words) ----
-        x = a ^ b
-        x2 = a2 ^ b2
-        full8 = (x == 0) & (x2 == 0)
-        adv = jnp.where(x != 0, lzbytes(x),
-                        4 + jnp.where(x2 == 0, 4, lzbytes(x2)))
-        k2 = jnp.minimum(k + adv, cap)
-        kn = jnp.where(full8, k2, k2 + SENT)
-        edone = is_ext & (kn >= cap)
-        lnc = jnp.minimum(kn & SMASK, cap)
-        need2 = (j2v >= 0) & (s2v >= scap) & (lnc < cap)
-        b_to2 = edone & (cand == 1) & need2
-        b_fin1 = edone & (cand == 1) & ~need2
-        b_fin2 = edone & (cand == 2)
-        use2 = lnc > res1
-
-        # ---- FIN: rules, lazy, emit ----
-        fin_now = fin_tok | b_fin1 | b_fin2 | fast1
-        lnf = jnp.where(fin_tok, ss1,
-                        jnp.where(b_fin2, jnp.maximum(lnc, res1), lnc))
-        jf = jnp.where(fin_tok, jj1,
-                       jnp.where(b_fin2 & ~use2, jres1, j))
-        nzv = jnp.where(fin_tok, no1, nz != 0)
-        lnf = jnp.where(nzv, 0, lnf)
-        distf = q + jnp.int32(window) - jf
-        lnf = jnp.where((lnf == 3) & (distf > too_far), 0, lnf)
-        distf = jnp.where(lnf > 0, distf, 0)
-        lnf = jnp.where(fast1, amark_ln, lnf)
-
-        if lazy:
-            golazy = (fin_now & (tgt == 0) & (lnf > 0)
-                      & (lnf < jnp.int32(max_lazy)) & (p + 1 < blen_w))
-        else:
-            golazy = fin_now & False
-        do_emit = (fin_now & ~golazy) | fast0
-        demote = lnf > ln0
-        lnE = jnp.where(tgt == 0, lnf, jnp.where(demote, zero, ln0))
-        dE = jnp.where(tgt == 0, distf, jnp.where(demote, zero, dist0))
-        mark = jnp.where(fast0, apk, (dE << 10) | (lnE + 1))
-        adv_p = jnp.where(lit0, q_to - p,
-                          jnp.where(fast0, jnp.maximum(aln1023 - 1, 1),
-                                    jnp.maximum(lnE, 1)))
-
-        # ---- next state ----
-        st_n = jnp.where(go_ext | b_to2, 1, jnp.where(fin_now, 0, st))
-        tgt_n = jnp.where(golazy, 1, jnp.where(do_emit, zero, tgt))
-        cand_n = jnp.where(go_ext, 1, jnp.where(b_to2, 2, cand))
-        k_n = jnp.where(go_ext, ss1, jnp.where(
-            b_to2, s2v, jnp.where(is_ext & ~edone, kn, k)))
-        j_n = jnp.where(go_ext, jj1, jnp.where(b_to2, j2v, j))
-        cap_n = jnp.where(go_ext, cap_t, cap)
-        scap_n = jnp.where(go_ext, scap_t, scap)
-        nz_n = jnp.where(go_ext, no1.astype(jnp.int32), nz)
-        res1_n = jnp.where(b_to2, lnc, res1)
-        jres1_n = jnp.where(b_to2, j, jres1)
-        ln0_n = jnp.where(golazy, lnf, ln0)
-        dist0_n = jnp.where(golazy, distf, dist0)
-        p_n = jnp.where(do_emit, p + adv_p, p)
-
-        # Emit: each walk owns its positions. ONE flat scatter-add per
-        # trip covers all three writes (mark emit + the +-1 literal-run
-        # interval delta): the mark slot is written at most once per
-        # position so add==set there, junk lanes land in per-block tail
-        # slots that the final [:, :N] slice discards. Literal runs
-        # don't scatter marks — they paint the interval delta; their
-        # marks come straight from w1 at the end.
-        # emit_pt and lit0 are mutually exclusive, so the mark emit and
-        # the interval-open (+1) share ONE update slot; only the
-        # interval-close (-1) needs the second: 2*NW updates per trip.
-        emit_pt = do_emit & ~lit0
-        dbase = jnp.int32(DELTA_OFF) + blk_w * jnp.int32(N + 2)
-        junk_o = blk_w * jnp.int32(N + 1) + jnp.int32(N)
-        idx_1 = jnp.where(emit_pt, blk_w * jnp.int32(N + 1) + p,
-                          jnp.where(lit0, dbase + p, junk_o))
-        val_1 = jnp.where(emit_pt, mark, jnp.where(lit0, 1, 0))
-        idx_2 = jnp.where(lit0, dbase + q_to, junk_o)
-        val_2 = jnp.where(lit0, -1, 0)
-        buf = buf.at[jnp.concatenate([idx_1, idx_2])].add(
-            jnp.concatenate([val_1, val_2]))
-        return (p_n, st_n, tgt_n, cand_n, k_n, j_n, cap_n, scap_n,
-                nz_n, res1_n, jres1_n, s2v, j2v, ln0_n, dist0_n, buf)
-
-    def cond(c):
-        return jnp.any(c[0] < pend_w)
-
-    DELTA_OFF = NB * (N + 1)
-    init = (sub_w * jnp.int32(restart), zero, zero, zero, zero, zero,
-            zero + 1, zero, zero, zero, zero, zero, zero, zero, zero,
-            jnp.zeros((NB * (N + 1) + NB * (N + 2),), jnp.int32))
-    final = jax.lax.while_loop(cond, body, init)
-    buf = final[-1]
-    out = buf[:DELTA_OFF].reshape(NB, N + 1)[:, :N]
-    delta = buf[DELTA_OFF:].reshape(NB, N + 2)
-    interval = jnp.cumsum(delta[:, :N], axis=1) > 0
-    out = jnp.where(interval, w1.reshape(NB, N), out)
-    visited = out & 1023
-    mlen = jnp.maximum(visited - 1, 0)
-    mdist = jnp.where(mlen > 0, out >> 10, 0)
-    return visited, mlen, mdist
 
 
 def _parse_doubling(step: jax.Array) -> jax.Array:
@@ -1089,7 +34,7 @@ def _parse_doubling(step: jax.Array) -> jax.Array:
 
 
 def greedy_parse(match_len: jax.Array, match_dist: jax.Array,
-                 block_len: jax.Array, use_pallas: bool = False):
+                 block_len: jax.Array):
     """match_len/match_dist: [NB, BLOCK] int32 (0 where no match).
     block_len: [NB] int32 — valid bytes in each block.
 
@@ -1101,10 +46,7 @@ def greedy_parse(match_len: jax.Array, match_dist: jax.Array,
     NB, block = match_len.shape
     pos = jax.lax.broadcasted_iota(jnp.int32, (NB, block), 1)
     step = jnp.where(match_len >= MIN_MATCH, match_len, 1)
-    if use_pallas:
-        reach = _parse_pallas(step)
-    else:
-        reach = _parse_doubling(step)
+    reach = _parse_doubling(step)
     # Positions at/after block_len are not tokens.
     is_token = (reach > 0) & (pos < block_len[:, None])
     cum = jnp.cumsum(is_token.astype(jnp.int32), axis=1)

@@ -1,39 +1,136 @@
-"""ctypes bindings to the C++ CPU oracle (cpp/libtpz_oracle.so).
+"""ctypes bindings to the C++ CPU oracle (cpp/).
 
 The oracle is the bit-exact differential-testing reference and the fast
-host fallback path (SURVEY.md §2.1 "ours" column). Parity target: the whole
-reference crate's native surface. Build with `make -C cpp`; set
-TPZ_ORACLE_LIB to override the library path (e.g. the ASan build).
+host path (SURVEY.md §2.1 "ours" column). Parity target: the whole
+reference crate's native surface. The library is built from the
+committed sources at first use (``build()``), into
+``cpp/build/<key>/``, where the key hashes the host CPU's model and
+flags, the compiler flags and every source byte: a library built on
+another machine, or from other sources, is never loaded. Set
+TPZ_ORACLE_LIB to load a prebuilt library instead (e.g. the ASan build).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import subprocess
 
 import numpy as np
 
 from tpz.errors import STATUS_BUFFER_TOO_SMALL, raise_for_status
 
 _LIB = None
+_LIB_ERROR = None  # a failed build is reported, not retried, per process
+_CPP = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "cpp")
+_SOURCES = ("huffman.cc", "lzss.cc", "deflate.cc", "checksums.cc",
+            "lzhuf.cc", "bzip2.cc", "capi.cc")
+_HEADERS = ("bitio.h", "huffman.h", "lzss.h", "deflate.h", "lzhuf.h",
+            "bzip2.h")
+_CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-march=native", "-pthread",
+             "-Wno-unused-parameter")
+
+
+def _host_tag() -> bytes:
+    """The host CPU's model name and feature flags (-march=native code
+    may not run on another CPU)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().split(b"\n")
+    except OSError:
+        import platform
+
+        return platform.processor().encode()
+    keep = {}
+    for ln in lines:
+        k = ln.split(b":", 1)[0].strip()
+        if k in (b"model name", b"flags", b"Features") and k not in keep:
+            keep[k] = ln
+    return b"|".join(keep[k] for k in sorted(keep))
+
+
+def _generated_header() -> str:
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_tpz_gen_constants", os.path.join(_CPP, "gen_constants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.render()
+
+
+def build() -> str:
+    """Path of the oracle library for this host and these sources,
+    compiling it first if needed. Concurrent callers (test workers,
+    processes sharing a checkout) serialize on a file lock; the library
+    appears under its final name only when complete."""
+    import fcntl
+    import tempfile
+
+    gen = _generated_header()
+    h = hashlib.sha256(_host_tag())
+    h.update(" ".join(_CXXFLAGS).encode())
+    h.update(gen.encode())
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(_CPP, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    out_dir = os.path.join(_CPP, "build", h.hexdigest()[:16])
+    path = os.path.join(out_dir, "libtpz_oracle.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            # Compile copies of the sources next to the generated header,
+            # so their quoted includes resolve inside this build only.
+            for name in _SOURCES + _HEADERS:
+                with open(os.path.join(_CPP, name), "rb") as f:
+                    data = f.read()
+                with open(os.path.join(tmp, name), "wb") as f:
+                    f.write(data)
+            with open(os.path.join(tmp, "generated_constants.h"), "w") as f:
+                f.write(gen)
+            cxx = os.environ.get("CXX", "g++")
+            procs = [subprocess.Popen(
+                [cxx, *_CXXFLAGS, "-c", name, "-o", name + ".o"], cwd=tmp,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                for name in _SOURCES]
+            for name, p in zip(_SOURCES, procs):
+                log = p.communicate()[0]
+                if p.returncode != 0:
+                    raise RuntimeError(f"oracle build failed on {name}:\n"
+                                       + log.decode(errors="replace"))
+            subprocess.run(
+                [cxx, *_CXXFLAGS, "-shared", "-o", "lib.so",
+                 *(n + ".o" for n in _SOURCES)], cwd=tmp, check=True,
+                capture_output=True)
+            os.replace(os.path.join(tmp, "lib.so"), path)
+    return path
 
 
 def _find_lib() -> str:
-    env = os.environ.get("TPZ_ORACLE_LIB")
-    if env:
-        return env
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    return os.path.join(here, "cpp", "libtpz_oracle.so")
+    return os.environ.get("TPZ_ORACLE_LIB") or build()
 
 
 def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        path = _find_lib()
-        if not os.path.exists(path):
-            raise RuntimeError(
-                f"oracle library not found at {path}; run `make -C cpp`"
-            )
+        global _LIB_ERROR
+        if _LIB_ERROR is None:
+            try:
+                path = _find_lib()
+                if not os.path.exists(path):
+                    raise RuntimeError(f"oracle library not found at {path}")
+            except (OSError, RuntimeError,
+                    subprocess.CalledProcessError) as e:
+                _LIB_ERROR = f"oracle library unavailable: {e}"
+        if _LIB_ERROR is not None:
+            raise RuntimeError(_LIB_ERROR)
         L = ctypes.CDLL(path)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -562,7 +659,7 @@ def deflate_encode_many(datas, params: np.ndarray | None = None,
 
 def deflate_plan(lit_freq: np.ndarray, dist_freq: np.ndarray,
                  block_lens: np.ndarray) -> dict:
-    """Host planning for the TPU pipeline (cpp DeflatePlan).
+    """Host planning for the device pipeline (cpp DeflatePlan).
 
     lit_freq [NB, 288] uint32 (EOB not counted), dist_freq [NB, 30],
     block_lens [NB] int64. Returns dict with btype, body_off, chunk1_off,
@@ -835,7 +932,7 @@ def lzhuf_index(data, orig_size: int, dict_bits: int,
 
 def lzhuf_plan(c_freq: np.ndarray, p_freq: np.ndarray,
                token_counts: np.ndarray, dict_bits: int) -> dict:
-    """Host planning for the TPU lzhuf pipeline (cpp LzhufPlan).
+    """Host planning for the device lzhuf pipeline (cpp LzhufPlan).
 
     c_freq [NB, 510] uint32, p_freq [NB, np] uint32 (padded rows fine),
     token_counts [NB] uint32. p tables come back strided [NB, 20]."""

@@ -16,8 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from tpz import device
+
 
 def make_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
+    device.platform()  # configures the compile cache before any compile
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -140,7 +143,6 @@ def sharded_compress(data: bytes, mesh: Mesh, k: int = 32,
     nb_total = (n + BLOCK - 1) // BLOCK
     nb_per = (nb_total + ndev - 1) // ndev
     shard_bytes = nb_per * BLOCK
-    use_pallas = jax.default_backend() == "tpu"
 
     # Host layout: per-shard spans with leading zero window + forward pad.
     span_rows = np.zeros((ndev, WINDOW + shard_bytes + FWD_PAD), np.uint8)
@@ -175,9 +177,7 @@ def sharded_compress(data: bytes, mesh: Mesh, k: int = 32,
         out_buf = jnp.zeros((cap_words + 2,), jnp.uint32)
         words, end_pos = dp._fused_encode_fn(
             span_row[0], so[0], sl[0], bl[0], bs[0], bf[0], out_buf, tabs,
-            k=cfg.max_chain, use_pallas=use_pallas, lazy=cfg.lazy,
-            suffix=cfg.suffix_mode, screen_bytes=cfg.screen_bytes,
-            max_lazy=cfg.max_lazy, restart=getattr(cfg, "restart", 0))
+            **dp.cfg_statics(cfg))
         size = (end_pos[-1] + 7) // 8  # stream bytes (0 for empty shards)
         # words -> little-endian bytes (explicit, not bitcast: XLA's byte
         # order for narrowing bitcasts is implementation-defined).

@@ -1,7 +1,7 @@
 """Host-side bit I/O, both bit orders.
 
 Parity: the reference crate's src/bitio/ (direction-generic BitReader /
-BitWriter / SmallBitVec, [MED] SURVEY.md §2.1). On TPU the equivalent is the
+BitWriter / SmallBitVec, [MED] SURVEY.md §2.1). On device the equivalent is the
 prefix-sum bitpack kernel (tpz/kernels/bitpack.py); this module is the
 host/oracle-side counterpart used for framing, table headers, tests, and the
 pure-Python reference codecs.

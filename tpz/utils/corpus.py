@@ -37,26 +37,40 @@ _WORDS = (
 
 @functools.lru_cache(maxsize=None)
 def text(n: int, seed: int = 0) -> bytes:
-    """Pseudo-English text with Zipf-like word frequencies."""
+    """Pseudo-English text with Zipf-like word frequencies.
+
+    Each word consumes three uniforms from the seeded stream, in order:
+    the word pick (inverse CDF, exactly as Generator.choice with p), the
+    capitalization draw and the period draw; they are drawn in bulk."""
     rng = np.random.default_rng(seed)
-    out = bytearray()
     ranks = np.arange(1, len(_WORDS) + 1, dtype=np.float64)
     probs = 1.0 / ranks
     probs /= probs.sum()
+    cdf = probs.cumsum()
+    cdf /= cdf[-1]
+    words = [w.encode() for w in _WORDS]
+    caps = [w.capitalize().encode() for w in _WORDS]
+    out = bytearray()
     line_len = 0
+    chunk = max(1024, n // 4)  # words per bulk draw (~5 bytes each)
     while len(out) < n:
-        w = _WORDS[rng.choice(len(_WORDS), p=probs)]
-        if rng.random() < 0.04:
-            w = w.capitalize()
-        out += w.encode()
-        line_len += len(w) + 1
-        if rng.random() < 0.08:
-            out += b"."
-        if line_len > 70:
-            out += b"\n"
-            line_len = 0
-        else:
-            out += b" "
+        u = rng.random(3 * chunk).reshape(-1, 3)
+        pick = cdf.searchsorted(u[:, 0], side="right").tolist()
+        cap = (u[:, 1] < 0.04).tolist()
+        period = (u[:, 2] < 0.08).tolist()
+        for k, c, d in zip(pick, cap, period):
+            if len(out) >= n:
+                break
+            w = caps[k] if c else words[k]
+            out += w
+            line_len += len(w) + 1
+            if d:
+                out += b"."
+            if line_len > 70:
+                out += b"\n"
+                line_len = 0
+            else:
+                out += b" "
     return bytes(out[:n])
 
 

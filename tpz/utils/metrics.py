@@ -2,7 +2,7 @@
 
 The reference crate's only observability is its error enum; our runs emit
 a JSON report (bytes in/out, ratio, throughput, per-stage timings, scaling
-efficiency) feeding BASELINE.md tracking.
+efficiency) for benchmark records.
 """
 
 from __future__ import annotations

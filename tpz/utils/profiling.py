@@ -15,12 +15,16 @@ import os
 def trace(log_dir: str | None = None):
     """Capture a device trace around the enclosed block.
 
-    with profiling.trace("/tmp/tpz_trace"): tpz.api.compress(...)
-    then `tensorboard --logdir /tmp/tpz_trace` or open in Perfetto.
+    with profiling.trace("traces"): tpz.api.compress(...)
+    then `tensorboard --logdir traces` or open in Perfetto. The default
+    directory is traces/ at the root of the checkout (TPZ_TRACE_DIR
+    overrides it).
     """
     import jax
 
-    log_dir = log_dir or os.environ.get("TPZ_TRACE_DIR", "/tmp/tpz_trace")
+    log_dir = log_dir or os.environ.get("TPZ_TRACE_DIR", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), "traces"))
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
